@@ -1,0 +1,130 @@
+"""Normalisation constant beta (port of repro/core/beta.py).
+
+Unbiasedness of x_hat = (beta/n) (T(S) + eps)^-1 sum_i G_i^T G_i x_i needs
+
+    beta = n d / E[ sum_j lambda_j / (T(lambda_j) + eps) ]
+
+over the eigenvalues lambda_j of the nk x nk Gram matrix A A^T. As in the JAX
+package, an *eigenvalue bank* (trials, nk) is simulated once per (n, k, d)
+and beta(rho) is a reduction over it for any rho. The port simulates it with
+its own draws (core.random), on the device it is asked for, batched to bound
+memory, and caches it in memory and on disk under ``.cache/beta_torch/`` at
+the checkout root (or ``$REPRO_TORCH_BETA_CACHE``), never in the JAX
+package's ``.cache/beta``. The JAX bank samples rows with ``permutation``
+and the port with top-k scores: both are uniform k-subsets.
+
+JAX evaluates beta at trace time; the port evaluates it eagerly at the first
+decode. For Rand-k-Spatial beta is exact from the binomial pmf.
+"""
+from __future__ import annotations
+
+import functools
+import os
+
+import numpy as np
+import torch
+from scipy.stats import binom
+
+from .. import resolve_device
+from ..kernels import ops as kops
+from . import random as prand
+from . import transforms
+
+_CACHE_DIR = os.environ.get(
+    "REPRO_TORCH_BETA_CACHE",
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "..", ".cache",
+                 "beta_torch"),
+)
+_BANKS: dict = {}
+
+
+def default_trials(n: int, k: int) -> int:
+    nk = n * k
+    return int(max(64, min(512, (1 << 18) // max(nk, 1))))
+
+
+def _bank_path(n: int, k: int, d: int, trials: int, seed: int) -> str:
+    return os.path.join(_CACHE_DIR, f"srht_eigs_n{n}_k{k}_d{d}_t{trials}_s{seed}.npy")
+
+
+def simulate_bank(n: int, k: int, d: int, trials: int, seed: int = 0,
+                  device=None) -> np.ndarray:
+    """(trials, nk) float32 eigenvalues of A A^T, A the stack of n SRHT maps."""
+    device = resolve_device(device)
+    tkeys = prand.fold_in(prand.key(seed, device), torch.arange(trials, device=device))
+    ids = torch.arange(n, device=device)
+    bs = max(1, min(trials, (1 << 24) // (n * k * d)))
+    out = []
+    for i in range(0, trials, bs):
+        ck = prand.fold_in(tkeys[i:i + bs, None], ids)                 # (b, n)
+        draw = prand.srht_draw(ck, d, k)
+        a = kops.srht_rows_matrix(draw["signs"], draw["rows"], d)     # (b, n, k, d)
+        a = a.reshape(a.shape[0], n * k, d)
+        gram = a @ a.transpose(-1, -2)
+        out.append(torch.linalg.eigvalsh(gram).cpu())
+    return torch.cat(out).numpy().astype(np.float32)
+
+
+def srht_eig_bank(n: int, k: int, d: int, trials: int | None = None, seed: int = 0,
+                  device=None) -> np.ndarray:
+    """(trials, nk) eigenvalue bank for S with n SRHT clients; cached in
+    memory and on disk. ``device`` is where a missing bank is simulated."""
+    trials = trials or default_trials(n, k)
+    ck = (n, k, d, trials, seed)
+    if ck in _BANKS:
+        return _BANKS[ck]
+    path = _bank_path(*ck)
+    if os.path.exists(path):
+        eigs = np.load(path)
+    else:
+        eigs = simulate_bank(n, k, d, trials, seed, device)
+        os.makedirs(_CACHE_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp.npy"
+        np.save(tmp, eigs)
+        os.replace(tmp, path)
+    _BANKS[ck] = eigs
+    return eigs
+
+
+def beta_fn_from_bank(bank, n: int, d: int, eps: float = 0.0):
+    """-> callable rho -> beta; rho a float32 tensor, 0-dim or (C,).
+
+    With eps > 0 beta calibrates the ridge-filtered estimator of the fused
+    CG decode, T_eps = T + eps, so unbiasedness stays exact; near-zero bank
+    eigenvalues then suppress themselves and no spectral floor is used."""
+    bank_t = torch.as_tensor(np.asarray(bank, dtype=np.float32))
+
+    def one(b: torch.Tensor, rho: torch.Tensor) -> torch.Tensor:
+        t = transforms.t_apply(b, rho) + eps
+        if eps > 0.0:
+            contrib = torch.clamp(b, min=0.0) / t
+        else:
+            contrib = torch.where(b > 1e-4, b / t, torch.zeros_like(b))
+        c = contrib.sum(-1).mean(-1) / (n * d)
+        return 1.0 / c
+
+    def beta(rho: torch.Tensor) -> torch.Tensor:
+        b = bank_t.to(rho.device)
+        if rho.dim() == 0:
+            return one(b, rho)
+        # per-chunk rho: batched so that a batch holds at most 2**24 floats
+        bs = max(1, (1 << 24) // b.numel())
+        return torch.cat([one(b, r[:, None, None]) for r in torch.split(rho, bs)])
+
+    return beta
+
+
+@functools.lru_cache(maxsize=256)
+def rand_k_spatial_beta_weights(n: int, k: int, d: int) -> tuple[float, np.ndarray]:
+    """(p, pmf of B ~ Bin(n-1, p)) with p = k/d, in float64."""
+    p = k / d
+    return p, binom.pmf(np.arange(n), n - 1, p)
+
+
+def rand_k_spatial_beta(n: int, k: int, d: int, rho: torch.Tensor) -> torch.Tensor:
+    """Exact beta = 1 / (p E[1/T(1+B)]); rho a float32 tensor, 0-dim or (C,)."""
+    p, pmf = rand_k_spatial_beta_weights(n, k, d)
+    m = 1.0 + torch.arange(n, dtype=torch.float32, device=rho.device)
+    inv_t = 1.0 / transforms.t_apply(m, rho[..., None])
+    w = torch.as_tensor(pmf, dtype=torch.float32, device=rho.device)
+    return 1.0 / (p * (w * inv_t).sum(-1))

@@ -1,0 +1,158 @@
+"""Public SRHT ops: the hand-written CUDA kernel on a CUDA tensor, the plain
+version on a CPU tensor (port of repro/kernels/ops.py).
+
+``use_kernel`` mirrors the JAX package's ``use_pallas``:
+
+- ``"auto"``  - the CUDA kernel on CUDA tensors, the plain version on CPU ones;
+- ``"force"`` - the CUDA kernel; raises on a CPU tensor;
+- ``"never"`` - the plain version, on either device (the comparisons of the
+  tests and of chip_smoke.py).
+
+On a CUDA tensor there is no fallback: a build or launch failure raises.
+
+``fwht``, ``srht_encode`` and ``srht_decode`` run the FWHT kernel
+(csrc/fwht.cu); ``srht_encode_batch``, ``srht_decode_sum`` and
+``srht_gram_apply`` the fused kernels (csrc/srht_fused.cu).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from . import fwht as _fwht
+from . import ref as _ref
+from . import srht_fused as _fused
+
+USE_KERNEL = ("auto", "force", "never")
+
+
+def _use_kernel(t: torch.Tensor, use_kernel: str) -> bool:
+    if use_kernel not in USE_KERNEL:
+        raise ValueError(f"use_kernel must be one of {USE_KERNEL}, got {use_kernel!r}")
+    if use_kernel == "never":
+        return False
+    if t.is_cuda:
+        return True
+    if use_kernel == "force":
+        raise RuntimeError(
+            f"use_kernel='force' needs a CUDA tensor; the CUDA kernels do not run on {t.device}"
+        )
+    return False
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last ``reset_launch_counts``, by kernel."""
+    return {**_fwht.LAUNCHES, **_fused.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    _fwht.LAUNCHES.clear()
+    _fused.LAUNCHES.clear()
+
+
+def _fwht_plain(x2: torch.Tensor, signs, scale: float) -> torch.Tensor:
+    """The FWHT kernel's function: f32 compute, output in x's dtype."""
+    t = x2.float()
+    if signs is not None:
+        t = t * signs
+    out = _ref.fwht_ref(t) * scale
+    return out.to(x2.dtype)
+
+
+def fwht(x: torch.Tensor, *, scale: float = 1.0, use_kernel: str = "auto") -> torch.Tensor:
+    """``scale * H_d @ x`` along the last axis; x: (..., d), f32 or bf16."""
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d)
+    if _use_kernel(x2, use_kernel):
+        out = _fwht.fwht_cuda(x2.contiguous(), scale=scale)
+    else:
+        out = _fwht_plain(x2, None, scale)
+    return out.reshape(x.shape)
+
+
+def srht_encode(x: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, *,
+                use_kernel: str = "auto") -> torch.Tensor:
+    """``G x = (1/sqrt(d)) (H (signs * x))[rows]``; x (..., d), signs (d,),
+    rows (k,). -> (..., k). The kernel fuses the gather and writes only k
+    columns per row."""
+    d = x.shape[-1]
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, d)
+    inv = 1.0 / math.sqrt(d)
+    rows = rows.long()
+    if _use_kernel(x2, use_kernel):
+        out = _fwht.fwht_cuda(x2.contiguous(), signs.float().contiguous(), rows.contiguous(),
+                              scale=inv)
+    else:
+        out = torch.index_select(_fwht_plain(x2, signs, inv), -1, rows)
+    return out.reshape(*lead, rows.shape[0])
+
+
+def srht_decode(u: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, d: int, *,
+                use_kernel: str = "auto") -> torch.Tensor:
+    """SRHT adjoint ``G^T u = (1/sqrt(d)) signs * (H scatter_rows(u))``;
+    u (..., k) -> (..., d)."""
+    k = u.shape[-1]
+    lead = u.shape[:-1]
+    full = _ref.srht_scatter_ref(u.reshape(-1, k), rows, d)
+    inv = 1.0 / math.sqrt(d)
+    if _use_kernel(full, use_kernel):
+        out = _fwht.fwht_cuda(full, scale=inv) * signs
+    else:
+        out = _fwht_plain(full, None, inv) * signs
+    return out.reshape(*lead, d)
+
+
+def srht_encode_batch(x: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, *,
+                      use_kernel: str = "auto") -> torch.Tensor:
+    """Per-row draws: ``out[r] = (1/sqrt(d)) (H (signs[r] * x[r]))[rows[r]]``.
+
+    x, signs: (..., d); rows: (..., k), leading dims aligned. -> (..., k)"""
+    d = x.shape[-1]
+    k = rows.shape[-1]
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, d)
+    s2 = torch.broadcast_to(signs, x.shape).reshape(-1, d)
+    r2 = torch.broadcast_to(rows.long(), lead + (k,)).reshape(-1, k)
+    inv = 1.0 / math.sqrt(d)
+    if _use_kernel(x2, use_kernel):
+        out = _fused.fwht_rowsigns_cuda(x2.float().contiguous(), s2.float().contiguous(),
+                                        r2.contiguous(), sign_pre=True, scale=inv)
+    else:
+        t = _ref.fwht_rowsigns_ref(x2, s2, sign_pre=True, scale=inv)
+        out = torch.gather(t, -1, r2)
+    return out.reshape(*lead, k)
+
+
+def srht_decode_sum(z: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, d: int, *,
+                    use_kernel: str = "auto") -> torch.Tensor:
+    """Client-summed SRHT adjoint ``y_c = sum_i G_i^T z_ic``.
+
+    z: (n, C, k); signs: (n, C|1, d); rows: (n, C|1, k). -> (C, d)"""
+    if _use_kernel(z, use_kernel):
+        return _fused.srht_decode_sum_cuda(
+            z.float().contiguous(), signs.float().contiguous(), rows.long().contiguous(), d,
+            scale=1.0 / math.sqrt(d),
+        )
+    return _ref.srht_decode_sum_ref(z, signs, rows, d)
+
+
+def srht_gram_apply(v: torch.Tensor, signs: torch.Tensor, mask: torch.Tensor, *,
+                    use_kernel: str = "auto") -> torch.Tensor:
+    """Matrix-free ``S v = sum_i G_i^T G_i v``; v (C, d), signs and mask
+    (n, C|1, d), mask the 0/1 indicator of each draw's rows. -> (C, d)"""
+    if _use_kernel(v, use_kernel):
+        return _fused.srht_gram_apply_cuda(
+            v.float().contiguous(), signs.float().contiguous(), mask.float().contiguous(),
+            scale=1.0 / v.shape[-1],
+        )
+    return _ref.srht_gram_apply_ref(v, signs, mask)
+
+
+def srht_rows_matrix(signs: torch.Tensor, rows: torch.Tensor, d: int) -> torch.Tensor:
+    """G = (1/sqrt(d)) E H D as a (..., k, d) matrix: row r is
+    H[rows[r], :] * signs. signs (..., d), rows (..., k)."""
+    h = torch.as_tensor(_ref.hadamard_matrix(d), device=signs.device)
+    return (h[rows.long()] * signs[..., None, :]) * (1.0 / np.sqrt(d))

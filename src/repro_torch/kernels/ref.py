@@ -1,0 +1,112 @@
+"""Plain PyTorch versions of the SRHT kernels (port of repro/kernels/ref.py).
+
+They are the correctness contract of the CUDA kernels: each kernel computes
+the same function with the same operations in the same order, so on the
+golden grid of small integers (every partial sum exact in float32) kernel and
+plain version agree bit for bit. The scale is an explicit multiply AFTER the
+transform, where the fused kernels apply it.
+
+The wrappers in ``kernels.ops`` run these on CPU tensors, and on CUDA tensors
+only when asked with ``use_kernel="never"``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def hadamard_matrix(d: int, dtype=np.float32) -> np.ndarray:
+    """Sylvester-ordered Hadamard matrix H_d with +-1 entries (d = 2**m)."""
+    if d & (d - 1) != 0 or d < 1:
+        raise ValueError(f"d must be a power of two, got {d}")
+    h = np.array([[1.0]], dtype=np.float64)
+    while h.shape[0] < d:
+        h = np.block([[h, h], [h, -h]])
+    return h.astype(dtype)
+
+
+def fwht_ref(x: torch.Tensor) -> torch.Tensor:
+    """Unnormalised Walsh-Hadamard transform ``H_d @ x`` along the last axis,
+    by the log2(d)-stage Sylvester-order butterfly, in x's dtype."""
+    d = x.shape[-1]
+    if d & (d - 1) != 0:
+        raise ValueError(f"last dim must be a power of two, got {d}")
+    lead = x.shape[:-1]
+    h = 1
+    while h < d:
+        x = x.reshape(*lead, d // (2 * h), 2, h)
+        a = x[..., 0, :]
+        b = x[..., 1, :]
+        x = torch.stack([a + b, a - b], dim=-2).reshape(*lead, d)
+        h *= 2
+    return x
+
+
+def srht_encode_ref(x: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``(1/sqrt(d)) (H (signs * x))[rows]``; x (..., d), signs (d,), rows (k,)."""
+    d = x.shape[-1]
+    t = fwht_ref(x * signs) * (1.0 / np.sqrt(d))
+    return torch.index_select(t, -1, rows.long())
+
+
+def srht_scatter_ref(z: torch.Tensor, rows: torch.Tensor, d: int) -> torch.Tensor:
+    """``out[..., rows[..., j]] = z[..., j]``; rows broadcastable to z. -> (..., d)"""
+    rows = torch.broadcast_to(rows.long(), z.shape)
+    full = torch.zeros(z.shape[:-1] + (d,), dtype=z.dtype, device=z.device)
+    return full.scatter_(-1, rows, z)
+
+
+def fwht_rowsigns_ref(
+    x: torch.Tensor,
+    signs: torch.Tensor | None,
+    *,
+    sign_pre: bool = False,
+    sign_post: bool = False,
+    scale: float = 1.0,
+) -> torch.Tensor:
+    """``scale * [signs *] H ([signs *] x)`` with one sign diagonal per row."""
+    t = x * signs if sign_pre else x
+    t = fwht_ref(t)
+    if sign_post:
+        t = t * signs
+    if scale != 1.0:
+        t = t * scale
+    return t
+
+
+def srht_encode_batch_ref(x: torch.Tensor, signs: torch.Tensor,
+                          rows: torch.Tensor) -> torch.Tensor:
+    """Per-row draws: ``(1/sqrt(d)) (H (signs * x))[rows]`` row for row.
+
+    x, signs: (..., d); rows: (..., k), leading dims aligned."""
+    d = x.shape[-1]
+    t = fwht_rowsigns_ref(x, signs, sign_pre=True, scale=1.0 / np.sqrt(d))
+    return torch.gather(t, -1, rows.long())
+
+
+def _client_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading (client) axis in client order, as the kernels do."""
+    acc = t[0]
+    for i in range(1, t.shape[0]):
+        acc = acc + t[i]
+    return acc
+
+
+def srht_decode_sum_ref(z: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,
+                        d: int) -> torch.Tensor:
+    """``y = sum_i G_i^T z_i`` per chunk; z (n, C, k), signs (n, C|1, d),
+    rows (n, C|1, k). -> (C, d)"""
+    full = srht_scatter_ref(z, rows, d)
+    out = fwht_rowsigns_ref(full, signs, sign_post=True, scale=1.0 / np.sqrt(d))
+    return _client_sum(out)
+
+
+def srht_gram_apply_ref(v: torch.Tensor, signs: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """Matrix-free ``S v = (1/d) sum_i signs_i * H (mask_i * H (signs_i * v))``.
+
+    v: (C, d); signs, mask: (n, C|1, d). -> (C, d)"""
+    d = v.shape[-1]
+    t = fwht_rowsigns_ref(v[None], signs, sign_pre=True)
+    t = fwht_rowsigns_ref(mask * t, signs, sign_post=True, scale=1.0 / d)
+    return _client_sum(t)

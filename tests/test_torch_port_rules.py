@@ -1,0 +1,106 @@
+"""Rules of the PyTorch port (src/repro_torch, chip_smoke.py).
+
+- it imports neither JAX nor the JAX package;
+- ``default_device()`` is CUDA or an error, never a silent CPU fallback;
+- on a CPU tensor the ops run the plain versions, ``use_kernel="force"``
+  raises, and the CUDA build is never reached.
+"""
+from __future__ import annotations
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import codec
+from repro_torch.dist import collectives
+from repro_torch.kernels import _build, ops
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    files = _port_files()
+    assert len(files) > 15
+    bad = [
+        (str(p.relative_to(ROOT)), mod)
+        for p in files for mod in _imported_modules(p)
+        if mod.split(".")[0] in ("jax", "jaxlib", "flax", "repro")
+    ]
+    assert bad == []
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.default_device()
+    tree = {"w": torch.zeros(2, 64)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        collectives.compressed_mean_tree(codec.RandProjSpatial(k=8, d_block=64), 0, tree)
+
+
+def _op_calls(x, v, signs, rows, mask):
+    return {
+        "fwht": lambda u: ops.fwht(x, use_kernel=u),
+        "srht_encode": lambda u: ops.srht_encode(x, signs[0, 0], rows[0, 0], use_kernel=u),
+        "srht_decode": lambda u: ops.srht_decode(x[..., :4], signs[0, 0], rows[0, 0], 16,
+                                                 use_kernel=u),
+        "srht_encode_batch": lambda u: ops.srht_encode_batch(
+            x, signs.expand(2, 3, 16), rows.expand(2, 3, 4), use_kernel=u),
+        "srht_decode_sum": lambda u: ops.srht_decode_sum(x[..., :4], signs, rows, 16,
+                                                         use_kernel=u),
+        "srht_gram_apply": lambda u: ops.srht_gram_apply(v, signs, mask, use_kernel=u),
+    }
+
+
+_OPS = ["fwht", "srht_encode", "srht_decode", "srht_encode_batch", "srht_decode_sum",
+        "srht_gram_apply"]
+
+
+@pytest.mark.parametrize("op", _OPS)
+def test_force_on_cpu_tensor_raises(op):
+    x = torch.randn(2, 3, 16)
+    signs = torch.ones(2, 1, 16)
+    rows = torch.arange(4).expand(2, 1, 4)
+    mask = torch.zeros(2, 1, 16)
+    call = _op_calls(x, x[0], signs, rows, mask)[op]
+    with pytest.raises(RuntimeError, match="force"):
+        call("force")
+    assert torch.equal(call("auto"), call("never"))
+
+
+def test_cpu_path_never_touches_the_kernel_build(monkeypatch):
+    def no_build():
+        raise AssertionError("the CPU path reached the CUDA build")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    before = ops.launch_counts()
+    xs = torch.randn(3, 2, 32)
+    pipe = codec.Pipeline([codec.RandProjSpatial(k=4, d_block=32)])
+    out = pipe.mean_estimate(0, xs, device="cpu")
+    assert out.shape == (2, 32) and torch.isfinite(out).all()
+    assert ops.launch_counts() == before
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError):
+        codec.RandProjSpatial(projection="gauss")
+    with pytest.raises(NotImplementedError):
+        spec = codec.RandProjSpatial(k=4, d_block=32, decode_method="gram")
+        codec.Pipeline([spec]).mean_estimate(0, torch.randn(2, 1, 32), device="cpu")
+    with pytest.raises(ValueError):
+        ops.fwht(torch.randn(2, 8), use_kernel="sometimes")
