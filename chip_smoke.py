@@ -10,8 +10,9 @@ result):
 2. build the CUDA kernels from kernels/csrc at first use;
 3. hold each kernel against its plain PyTorch version on the card: bitwise
    on the golden grid (small integers, +-1 signs, ragged chunk counts,
-   shared and per-chunk draws, bf16 input for the FWHT; the Gram apply above
-   d = 512 within 1e-4 relative, as its double transform leaves the exact
+   shared and per-chunk draws, bf16 input for the FWHT, the per-row-sign
+   FWHT with its signs before, after and on both sides of the transform;
+   the Gram apply above d = 512 within 1e-4 relative, as its double transform leaves the exact
    range), and within rtol 1e-5 / atol 1e-5 on random float32 at the main
    path's shapes;
 4. the main path at full width: ``compressed_mean_tree`` of
@@ -27,8 +28,9 @@ result):
 6. a small tree through the kernels on the card and through the plain
    versions on the CPU, which draw the same maps (relative L2 <= 1e-4);
 7. time each kernel at its full-width shapes (CUDA events, median), beside
-   its plain version, its bound and, where one exists, a one-call PyTorch
-   equivalent; print them as one JSON line.
+   its plain version, its bound and a one-call PyTorch equivalent (a dense
+   float32 matmul or einsum, checked against the kernel); print them as one
+   JSON line.
 
 The last line is {"ok": true, "device": {...}}. Needs one card; exits 1
 without CUDA or outside a checkout of the repository.
@@ -180,7 +182,7 @@ class Errors:
 
 
 def phase_kernel_checks(errs: Errors) -> None:
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref, srht_fused
 
     g = torch.Generator(device=DEV).manual_seed(1234)
     n, n_golden = 3, 0
@@ -203,13 +205,22 @@ def phase_kernel_checks(errs: Errors) -> None:
                     errs.check("fwht", ops.fwht(xd, scale=0.25, use_kernel="force"),
                                ops.fwht(xd, scale=0.25, use_kernel="never"),
                                exact=True, what=f"{tag} {dt} bare")
-                # K2: per-row-draw encode
+                # K2: per-row-draw encode, and the full-width transform with
+                # the signs before it, after it, or both
                 s_full = signs.expand(n, c, d)
                 r_full = rows.expand(n, c, k)
                 errs.check("fwht_rowsigns",
                            ops.srht_encode_batch(x, s_full, r_full, use_kernel="force"),
                            ops.srht_encode_batch(x, s_full, r_full, use_kernel="never"),
                            exact=True, what=tag)
+                x2, s2 = x.reshape(-1, d), s_full.reshape(-1, d).contiguous()
+                for pre, post in ((True, False), (False, True), (True, True)):
+                    errs.check("fwht_rowsigns",
+                               srht_fused.fwht_rowsigns_cuda(x2, s2, sign_pre=pre, sign_post=post,
+                                                             scale=0.25),
+                               ref.fwht_rowsigns_ref(x2, s2, sign_pre=pre, sign_post=post,
+                                                     scale=0.25),
+                               exact=True, what=f"{tag} full width pre={pre} post={post}")
                 # K3: client-summed adjoint from (n, C, k) payloads
                 z = _ints(g, (n, c, k))
                 errs.check("srht_decode_sum",
@@ -387,9 +398,11 @@ def phase_profile(tree: dict) -> dict:
     device_ms = sum(by_name.values())
     if device_ms <= 0:
         fail("the profiler saw no device time in a round")
+    if device_ms > wall_ms:  # one stream: more device time than wall time is a miscount
+        fail(f"the profile counts {device_ms} ms of device time in {wall_ms} ms of wall time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {"wall_ms": wall_ms, "device_ms": device_ms,
-           "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+           "idle_share": 1.0 - device_ms / wall_ms,
            "top_device_ms": [[name[:60], ms] for name, ms in top]}
     log("profile " + json.dumps(out))
     return out
@@ -430,32 +443,45 @@ def phase_small_reference() -> None:
 # -------------------------------------------------------------------- phase 5
 
 def _library_calls(inp: dict) -> dict:
-    """One PyTorch call per kernel computing the same function, where one
-    exists: a float32 matmul against the dense (signed, scaled) Hadamard
-    matrix for the encodes. For fwht_rowsigns the per-row sign flip is done
-    beforehand and not timed."""
-    from repro_torch.kernels import ref
+    """One float32 PyTorch call per kernel computing the same function, with
+    the dense matrices built beforehand and not timed: for the encodes a
+    matmul against the (signed, scaled) Hadamard matrix, for fwht_rowsigns
+    after its per-row sign flip; for the decode sum an einsum with the
+    stacked SRHT maps G_i (n, k, d); for the Gram apply a matmul with
+    S = sum_i G_i^T G_i (d, d)."""
+    from repro_torch.kernels import ops, ref
 
     d = D_BLOCK
     h = torch.as_tensor(ref.hadamard_matrix(d), device=DEV) * (1.0 / np.sqrt(d))
     s1, r1 = inp["signs"][0, 0], inp["rows"][0, 0]
     w_enc = (s1[:, None] * h)[:, r1].contiguous()        # (d, k)
-    x = inp["x"]
+    x, z = inp["x"], inp["z"]
     x_signed = x * inp["pc_signs"]
+    g = ops.srht_rows_matrix(inp["signs"][:, 0], inp["rows"][:, 0], d)  # (n, k, d)
+    s = torch.einsum("nkd,nke->de", g, g).contiguous()
     return {
         "fwht": lambda: torch.matmul(x, w_enc),
         "fwht_rowsigns": lambda: torch.matmul(x_signed, h),
+        "srht_decode_sum": lambda: torch.einsum("nck,nkd->cd", z, g),
+        "srht_gram_apply": lambda: torch.matmul(x, s),
     }
 
 
 def phase_timing(calls: dict, launches: dict, errs: Errors, inputs: dict) -> list:
-    inp_lib = _library_calls(inputs)
+    library = _library_calls(inputs)
     out = []
     for name, (call, n_ops, n_bytes) in calls.items():
         ms = time_ms(lambda: call("force"))
         plain_ms = time_ms(lambda: call("never"), reps=3, warmup=1)
-        lib = inp_lib.get(name)
-        library_ms = time_ms(lib) if lib is not None else None
+        lib = library[name]
+        same = lib()
+        if name == "fwht_rowsigns":  # the matmul gives every column, the kernel its rows'
+            same = torch.gather(same, -1, inputs["pc_rows"].long())
+        gap = rel_l2(same, call("force"))
+        if not gap <= 1e-4:
+            fail(f"{name}: the library yardstick differs from the kernel by {gap}")
+        del same
+        library_ms = time_ms(lib)
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / F32_OPS_PER_S * 1e3
         out.append({

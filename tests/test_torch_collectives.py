@@ -8,6 +8,9 @@ with a subset of participants.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,27 +48,69 @@ def test_flatten_order_is_ravel_pytree():
     np.testing.assert_array_equal(back["a"]["b"][0].numpy(), tree["a"]["b"][0])
 
 
-# four reporting clients either way, so both cases decode with one bank
-@pytest.mark.parametrize("n_total,participants", [(4, None), (5, [0, 2, 3, 4])],
-                         ids=["all", "participants"])
-def test_compressed_mean_tree_matches_jax(n_total, participants):
-    tree = _tree(1, n_total)
-    key = jax.random.key(7)
-    kw = dict(k=K, d_block=D_BLOCK, transform="avg", beta_trials=TRIALS)
-    jspec = jcodec.RandProjSpatial(use_pallas="never", **kw)
-    # jit compiles the JAX reference as one program, far faster than op by op
-    jmean, jinfo, _ = jax.jit(lambda t: jcoll.compressed_mean_tree(
-        jspec, key, t, participants=participants))({k: jnp.asarray(v) for k, v in tree.items()})
+@contextlib.contextmanager
+def _cheap_compiles():
+    """Compile the JAX reference without XLA's costly optimisation passes.
+    It runs once, so they cost more than they save, and they change no
+    float semantics (no fast math either way)."""
+    was = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", was)
 
-    ids = None if participants is None else np.asarray(participants)
-    n = n_total if ids is None else len(ids)
-    n_chunks = int(jinfo["n_chunks"])
-    draws = jrps._fused_draws(jspec, key, n, n_chunks, ids, 0)
+
+# four reporting clients either way, so both cases decode with one bank
+CASES = {"all": (4, None), "participants": (5, [0, 2, 3, 4])}
+KEY_SEED = 7
+
+
+def _jspec():
+    return jcodec.RandProjSpatial(use_pallas="never", k=K, d_block=D_BLOCK, transform="avg",
+                                  beta_trials=TRIALS)
+
+
+@functools.cache
+def _jax_side() -> dict:
+    """Per case: the client tree, and JAX's mean tree, info and draws, from
+    ONE compiled program for both cases."""
+    trees = {case: _tree(1, n_total) for case, (n_total, _) in CASES.items()}
+    n_chunks = -(-sum(int(np.prod(s)) for s in SHAPES.values()) // D_BLOCK)
+
+    def everything(trees):
+        key = jax.random.key(KEY_SEED)
+        out = {}
+        for case, (n_total, participants) in CASES.items():
+            ids = None if participants is None else jnp.asarray(participants)
+            n = n_total if participants is None else len(participants)
+            mean, info, _ = jcoll.compressed_mean_tree(_jspec(), key, trees[case],
+                                                       participants=participants)
+            out[case] = {"mean": mean, "info": info,
+                         "draws": jrps._fused_draws(_jspec(), key, n, n_chunks, ids, 0)}
+        return out
+
+    args = {case: {k: jnp.asarray(v) for k, v in t.items()} for case, t in trees.items()}
+    with _cheap_compiles():
+        out = jax.tree.map(np.asarray, jax.jit(everything)(args))
+        bank = jbeta.srht_eig_bank(4, K, D_BLOCK, TRIALS)
+    for case in CASES:
+        out[case].update(tree=trees[case], bank=bank)
+        assert int(out[case]["info"]["n_chunks"]) == n_chunks
+    return out
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_compressed_mean_tree_matches_jax(case):
+    n_total, participants = CASES[case]
+    jax_side = _jax_side()[case]
+    tree, jmean, jinfo = jax_side["tree"], jax_side["mean"], jax_side["info"]
+    n = n_total if participants is None else len(participants)
     tmean, tinfo, ef = tcoll.compressed_mean_tree(
-        tcodec.RandProjSpatial(**kw), 0, interop.tree_from_numpy(tree, "cpu"),
-        participants=participants, device="cpu",
-        draws=interop.draws_from_numpy({k: np.asarray(v) for k, v in draws.items()}, "cpu"),
-        bank=interop.bank_from_numpy(jbeta.srht_eig_bank(n, K, D_BLOCK, TRIALS)),
+        tcodec.RandProjSpatial(k=K, d_block=D_BLOCK, transform="avg", beta_trials=TRIALS), 0,
+        interop.tree_from_numpy(tree, "cpu"), participants=participants, device="cpu",
+        draws=interop.draws_from_numpy(jax_side["draws"], "cpu"),
+        bank=interop.bank_from_numpy(jax_side["bank"]),
     )
     assert ef is None
     assert list(tmean) == list(tree)

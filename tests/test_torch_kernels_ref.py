@@ -10,6 +10,7 @@ test holds them against these plain versions there and skips elsewhere.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import jax
@@ -53,8 +54,9 @@ def test_hadamard_matrix_matches():
         tref.hadamard_matrix(12)
 
 
-def _oracles(ref, x, signs, rows, z, v, mask, d):
-    """Every SRHT oracle of one ``ref`` module on one cell's inputs."""
+def _oracles(ref, x, signs, rows, z, v, mask, d, decode_sum=True):
+    """Every SRHT oracle of one ``ref`` module on one cell's inputs (the
+    decode sum's slot None without ``decode_sum``)."""
     n, c, _ = x.shape
     k = rows.shape[-1]
     s_full = ref_broadcast(ref, signs, (n, c, d))
@@ -66,7 +68,7 @@ def _oracles(ref, x, signs, rows, z, v, mask, d):
         ref.fwht_rowsigns_ref(x, s_full, sign_pre=True, scale=0.25),
         ref.fwht_rowsigns_ref(x, s_full, sign_post=True, scale=0.25),
         ref.srht_encode_batch_ref(x, s_full, r_full),
-        ref.srht_decode_sum_ref(z, signs, rows, d),
+        ref.srht_decode_sum_ref(z, signs, rows, d) if decode_sum else None,
         ref.srht_gram_apply_ref(v, signs, mask),
     )
 
@@ -75,19 +77,43 @@ def ref_broadcast(ref, a, shape):
     return torch.broadcast_to(a, shape) if ref is tref else jnp.broadcast_to(a, shape)
 
 
-# One compiled program per cell keeps the JAX side of the comparison cheap.
-# Under jit XLA pulls the decode sum's scale out of its client sum, which
-# rounds differently from the eager oracle; so that oracle's final sum runs
-# eagerly, on its jitted per-client terms.
-_jax_oracles = jax.jit(functools.partial(_oracles, jref), static_argnames=("d",))
-_jax_decode_terms = jax.jit(
-    lambda z, signs, rows, d: jref.fwht_rowsigns_ref(
-        jref.srht_scatter_ref(z, rows, d), signs, sign_post=True, scale=1.0 / np.sqrt(d)),
-    static_argnames=("d",),
-)
+@contextlib.contextmanager
+def _cheap_compiles():
+    """Compile the JAX reference without XLA's costly optimisation passes.
+    It runs once, so they cost more than they save, and they change no
+    float semantics (no fast math either way)."""
+    was = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", was)
 
 
-def _cell(rng, n, c, d, k, shared, draw_ints):
+def _jax_cell(x, signs, rows, z, v, mask):
+    """JAX's oracles on one cell. Under jit XLA pulls the decode sum's scale
+    out of its client sum, which rounds differently from the eager oracle;
+    so that oracle's per-client terms come out here and its final sum runs
+    eagerly (``_cell``)."""
+    d = x.shape[-1]
+    terms = jref.fwht_rowsigns_ref(jref.srht_scatter_ref(z, rows, d), signs, sign_post=True,
+                                   scale=1.0 / np.sqrt(d))
+    return _oracles(jref, x, signs, rows, z, v, mask, d, decode_sum=False), terms
+
+
+# (n, C, d, k, shared, draw_ints): the golden grid's cells (ragged chunk
+# counts; one sign draw per client, or one per chunk) and one of random floats
+CELLS = {
+    "d8-shared": (3, 3, 8, 2, True, True),
+    "d64-per_chunk": (3, 5, 64, 16, False, True),
+    "d512-shared": (3, 5, 512, 128, True, True),
+    "d4096-per_chunk": (3, 3, 4096, 1024, False, True),
+    "random": (4, 5, 256, 32, False, False),
+}
+
+
+def _inputs(seed, n, c, d, k, shared, draw_ints):
+    rng = np.random.default_rng(seed)
     cs = 1 if shared else c
     x = _ints(rng, (n, c, d)) if draw_ints else rng.standard_normal((n, c, d)).astype(np.float32)
     signs = _signs(rng, (n, cs, d))
@@ -96,36 +122,48 @@ def _cell(rng, n, c, d, k, shared, draw_ints):
     v = _ints(rng, (c, d), hi=4) if draw_ints else rng.standard_normal((c, d)).astype(np.float32)
     mask = np.zeros((n, cs, d), np.float32)
     np.put_along_axis(mask, rows, 1.0, axis=-1)
-    args = (x, signs, rows, z, v, mask)
-    got = _oracles(tref, *[_t(a) for a in args], d=d)
-    want = list(_jax_oracles(*[jnp.asarray(a) for a in args], d=d))
-    want[6] = jnp.sum(_jax_decode_terms(jnp.asarray(z), jnp.asarray(signs), jnp.asarray(rows),
-                                        d=d), axis=0)
-    return got, want
+    return x, signs, rows, z, v, mask
 
 
-@pytest.mark.parametrize("d,c,shared", [
-    (8, 3, True), (64, 5, False), (512, 5, True), (4096, 3, False),
-], ids=["d8-shared", "d64-per_chunk", "d512-shared", "d4096-per_chunk"])
-def test_golden_bitwise(d, c, shared):
-    """Every SRHT oracle, bit for bit, on one cell of the golden grid (ragged
-    chunk counts; one sign draw per client, or one per chunk)."""
-    rng = np.random.default_rng(d * 7 + c + shared)
-    got, want = _cell(rng, 3, c, d, max(1, d // 4), shared, draw_ints=True)
+@functools.cache
+def _jax_cells() -> dict:
+    """name -> (inputs, JAX's oracles) for every cell, from ONE compiled
+    program: one compile is far cheaper than one per cell."""
+    inputs = {name: _inputs(i, *cell) for i, (name, cell) in enumerate(CELLS.items())}
+    args = {name: tuple(jnp.asarray(a) for a in inp) for name, inp in inputs.items()}
+    cells = {}
+    with _cheap_compiles():
+        out = jax.jit(lambda args: {name: _jax_cell(*a) for name, a in args.items()})(args)
+        for name, (want, terms) in out.items():
+            want = list(want)
+            want[6] = jnp.sum(terms, axis=0)
+            cells[name] = inputs[name], [np.asarray(w) for w in want]
+    return cells
+
+
+def _cell(name):
+    inputs, want = _jax_cells()[name]
+    d = inputs[0].shape[-1]
+    return _oracles(tref, *[_t(a) for a in inputs], d=d), want
+
+
+@pytest.mark.parametrize("name", [name for name in CELLS if name != "random"])
+def test_golden_bitwise(name):
+    """Every SRHT oracle, bit for bit, on one cell of the golden grid."""
+    got, want = _cell(name)
+    d = CELLS[name][2]
     for g, w in zip(got[:-1], want[:-1]):
         _same(g, w)
     if d <= 512:  # the double transform leaves the exact range above (test_kernels.py)
         _same(got[-1], want[-1])
     else:
-        np.testing.assert_allclose(got[-1].numpy(), np.asarray(want[-1]), rtol=1e-6,
-                                   atol=1e-5 * d)
+        np.testing.assert_allclose(got[-1].numpy(), want[-1], rtol=1e-6, atol=1e-5 * d)
 
 
 def test_random_floats_close():
-    rng = np.random.default_rng(11)
-    got, want = _cell(rng, 4, 5, 256, 32, False, draw_ints=False)
+    got, want = _cell("random")
     for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-5)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-6, atol=1e-5)
 
 
 def test_ops_plain_paths():

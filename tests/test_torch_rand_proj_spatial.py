@@ -8,6 +8,8 @@ port's own draws and bank the estimator is unbiased.
 """
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,8 @@ from repro_torch.core import random as prand
 from repro_torch.core.estimators import rand_proj_spatial as trps
 
 N, C, D, K, TRIALS = 4, 3, 64, 8, 64
+BETA_EPS = (0.0, 1e-2)
+BETA_RHOS = np.array([0.0, 1.0 / 3.0, 2.0 / 3.0, 1.0], np.float32)
 
 
 def _specs(shared, transform="avg", r_mode="fixed"):
@@ -37,16 +41,34 @@ def _rel_l2(got: torch.Tensor, want) -> float:
     return float(np.linalg.norm(got.double().numpy() - want) / np.linalg.norm(want))
 
 
-DECODE_CASES = [("one", "fixed"), ("max", "fixed"), ("avg", "fixed"), ("opt", "fixed"),
-                ("avg", "est")]
+# Every transform and both r_modes against JAX with one draw per client; with
+# a draw per chunk, one transform per r_mode (each JAX decode is a CG loop to
+# compile). test_per_chunk_draws_decode_as_shared covers the other transforms
+# on the per-chunk route.
+DECODE_CASES = [(True, "one", "fixed"), (True, "max", "fixed"), (True, "avg", "fixed"),
+                (True, "opt", "fixed"), (True, "avg", "est"),
+                (False, "avg", "fixed"), (False, "avg", "est")]
+
+
+@contextlib.contextmanager
+def _cheap_compiles():
+    """Compile the JAX reference without XLA's costly optimisation passes.
+    It runs once, so they cost more than they save, and they change no
+    float semantics (no fast math either way)."""
+    was = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", was)
 
 
 @pytest.fixture(scope="module")
 def jax_side():
-    """Correlated client chunks, the JAX bank and, per randomness mode, the
-    JAX draws, payloads (fixed and est modes) and fused decodes of every
-    case. The JAX side runs as ONE jitted program: compiling it once is far
-    cheaper than compiling each call on its own."""
+    """Correlated client chunks, the JAX bank and beta, and per randomness
+    mode the JAX draws, payloads (fixed and est modes) and fused decodes of
+    every case. The JAX side runs as ONE compiled program: compiling it once
+    is far cheaper than compiling each call on its own."""
     rng = np.random.default_rng(0)
     common = rng.standard_normal((C, D))
     xs = (common[None] + 0.5 * rng.standard_normal((N, C, D))).astype(np.float32)
@@ -59,14 +81,19 @@ def jax_side():
                 js, _ = _specs(shared, r_mode=r_mode)
                 out[shared, r_mode] = jcodec.Pipeline([js]).encode_all(key, x)[0].arrays
             out[shared, "draws"] = jrps._fused_draws(_specs(shared)[0], key, N, C, None, 0)
-            for transform, r_mode in DECODE_CASES:
-                js, _ = _specs(shared, transform, r_mode)
-                out[shared, transform, r_mode] = jrps._decode_fused(
-                    js, key, out[shared, r_mode], N, None, 0)
-        return out
+        for shared, transform, r_mode in DECODE_CASES:
+            js, _ = _specs(shared, transform, r_mode)
+            out[shared, transform, r_mode] = jrps._decode_fused(
+                js, key, out[shared, r_mode], N, None, 0)
+        betas = {eps: jax.vmap(jbeta.beta_fn_from_bank(bank, N, D, eps=eps))(BETA_RHOS)
+                 for eps in BETA_EPS}
+        rks = jax.vmap(lambda r: jbeta.rand_k_spatial_beta(N, K, D, r))(BETA_RHOS)
+        return out, betas, rks
 
-    out = jax.tree.map(np.asarray, jax.jit(everything)(jnp.asarray(xs)))
-    out.update(xs=xs, bank=np.asarray(jbeta.srht_eig_bank(N, K, D, TRIALS)))
+    with _cheap_compiles():
+        bank = np.asarray(jbeta.srht_eig_bank(N, K, D, TRIALS))
+        out, betas, rks = jax.tree.map(np.asarray, jax.jit(everything)(jnp.asarray(xs)))
+    out.update(xs=xs, bank=bank, beta=betas, rand_k_spatial_beta=rks)
     return out
 
 
@@ -84,31 +111,45 @@ def test_encode_matches_jax(jax_side, shared, r_mode):
         tcodec.Payload({k: v[0] for k, v in pay.arrays.items()}, pay.meta)) == []
 
 
-@pytest.mark.parametrize("transform,r_mode", DECODE_CASES)
-@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_chunk"])
-def test_decode_fused_matches_jax(jax_side, shared, transform, r_mode):
+def _port_decode(jax_side, shared, transform, r_mode, draws=None):
     _, ts = _specs(shared, transform, r_mode)
-    got = trps._decode_fused(
+    return trps._decode_fused(
         ts, 0, {k: torch.tensor(v) for k, v in jax_side[shared, r_mode].items()}, N,
-        draws=interop.draws_from_numpy(jax_side[shared, "draws"], "cpu"),
+        draws=draws or interop.draws_from_numpy(jax_side[shared, "draws"], "cpu"),
         bank=interop.bank_from_numpy(jax_side["bank"]),
     )
+
+
+@pytest.mark.parametrize("shared,transform,r_mode", DECODE_CASES,
+                         ids=[f"{'shared' if s else 'per_chunk'}-{t}-{r}"
+                              for s, t, r in DECODE_CASES])
+def test_decode_fused_matches_jax(jax_side, shared, transform, r_mode):
+    got = _port_decode(jax_side, shared, transform, r_mode)
     assert got.shape == (C, D)
     assert _rel_l2(got, jax_side[shared, transform, r_mode]) <= 1e-4
 
 
-@pytest.mark.parametrize("eps", [0.0, 1e-2])
+@pytest.mark.parametrize("transform", ["one", "max", "opt"])
+def test_per_chunk_draws_decode_as_shared(jax_side, transform):
+    """The per-chunk route (signs, rows and mask of shape (n, C, w)) given
+    the JAX shared draws repeated over every chunk decodes the same bits as
+    the shared route (n, 1, w), which matches JAX above."""
+    shared = interop.draws_from_numpy(jax_side[True, "draws"], "cpu")
+    repeated = {k: v.expand(N, C, v.shape[-1]).contiguous() for k, v in shared.items()}
+    want = _port_decode(jax_side, True, transform, "fixed", draws=shared)
+    got = _port_decode(jax_side, True, transform, "fixed", draws=repeated)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("eps", BETA_EPS)
 def test_beta_matches_jax(jax_side, eps):
-    bank = jax_side["bank"]
-    jfn = jbeta.beta_fn_from_bank(bank, N, D, eps=eps)
-    tfn = tbeta.beta_fn_from_bank(interop.bank_from_numpy(bank), N, D, eps=eps)
-    rhos = np.array([0.0, 1.0 / 3.0, 2.0 / 3.0, 1.0], np.float32)
-    want = np.array([float(jfn(jnp.float32(r))) for r in rhos])
-    np.testing.assert_allclose(tfn(torch.from_numpy(rhos)).numpy(), want, rtol=1e-6)
-    np.testing.assert_allclose(float(tfn(torch.tensor(rhos[2]))), want[2], rtol=1e-6)
+    tfn = tbeta.beta_fn_from_bank(interop.bank_from_numpy(jax_side["bank"]), N, D, eps=eps)
+    want = jax_side["beta"][eps]
+    np.testing.assert_allclose(tfn(torch.from_numpy(BETA_RHOS)).numpy(), want, rtol=1e-6)
+    np.testing.assert_allclose(float(tfn(torch.tensor(BETA_RHOS[2]))), want[2], rtol=1e-6)
     np.testing.assert_allclose(
-        tbeta.rand_k_spatial_beta(N, K, D, torch.from_numpy(rhos)).numpy(),
-        np.asarray(jax.vmap(lambda r: jbeta.rand_k_spatial_beta(N, K, D, r))(rhos)), rtol=1e-6)
+        tbeta.rand_k_spatial_beta(N, K, D, torch.from_numpy(BETA_RHOS)).numpy(),
+        jax_side["rand_k_spatial_beta"], rtol=1e-6)
 
 
 def test_draws_are_distinct_rademacher_and_rederivable():
@@ -157,9 +198,9 @@ def test_cg_host_check_interval_changes_no_bits(monkeypatch):
 
 
 def test_unbiased_with_own_draws_and_bank():
-    """Mean over 128 seeds of the port's own estimate is within 4 sigma of
+    """Mean over 64 seeds of the port's own estimate is within 4 sigma of
     the true mean, coordinate by coordinate (d = 32)."""
-    n, c, d, k, seeds = 4, 2, 32, 8, 128
+    n, c, d, k, seeds = 4, 2, 32, 8, 64
     rng = np.random.default_rng(1)
     common = rng.standard_normal((c, d))
     xs = torch.from_numpy((common[None] + 0.3 * rng.standard_normal((n, c, d))).astype(np.float32))
