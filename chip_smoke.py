@@ -20,17 +20,35 @@ result):
    tree with mamba2-130m's 11 parameter leaves (129,100,224 values) for 4
    clients correlated at rho = 0.9: three rounds with shared randomness, one
    with a draw per chunk. Launch counts are zeroed just before these rounds
-   and read just after; every kernel must have launched. Each round is then
+   and read just after; each of K1-K4 must have launched. Each round is then
    re-run with the plain versions on the card (relative L2 gap <= 1e-3), and
    its error against the true mean must beat Rand-k's expected error;
 5. profile one more shared-randomness round (torch.profiler): device time
    by kernel against the round's wall time;
 6. a small tree through the kernels on the card and through the plain
    versions on the CPU, which draw the same maps (relative L2 <= 1e-4);
-7. time each kernel at its full-width shapes (CUDA events, median), beside
-   its plain version, its bound and a one-call PyTorch equivalent (a dense
-   float32 matmul or einsum, checked against the kernel); print them as one
-   JSON line.
+7. the flash-attention kernel (K5) against its plain version on the card,
+   on a grid (rep 1/2; window 0/64/1024; q_offset 0/384 with Sq < Sk;
+   d_head 64/128/256; ragged Sq, Sk; float32 within 2e-5, or 3e-5 / 1e-4
+   with a window or an offset, bfloat16 within 2e-2), and at the serve shape
+   (q (32, 2048, 256), k/v (16, 2048, 256), bf16, window 1024 and 0);
+8. the serving path at full width: gemma3-4b (3,879,907,840 parameters,
+   random from a fixed seed, float32 on the card, bf16 compute) with
+   ``attn_impl="flash"`` serves 4 prompts of 2048 tokens and decodes 32
+   greedy tokens through ``launch.serve.serve``. Launch counts are zeroed
+   just before and read just after: K5 must have launched 34 times, once per
+   attention layer of the prefill. The prefill is re-run through the plain
+   versions on the card (last-position logits within relative L2 5e-2 in
+   bf16), and both once more in float32 (within 1e-4); one more prefill is
+   profiled (device time by kernel, K5's share, idle share);
+9. tiny gemma (float32) through the kernel on the card and the plain
+   versions on the CPU, with the same weights: logits within relative L2
+   1e-4 and equal greedy tokens over 8 decode steps;
+10. time each kernel at its main path's shapes (CUDA events, median of 10),
+   beside its plain version, its bound and a one-call PyTorch equivalent (a
+   dense float32 matmul or einsum for K1-K4, scaled_dot_product_attention
+   with K/V repeated for K5, each checked against the kernel); print them
+   as one JSON line.
 
 The last line is {"ok": true, "device": {...}}. Needs one card; exits 1
 without CUDA or outside a checkout of the repository.
@@ -52,6 +70,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 N_CLIENTS, K, D_BLOCK, RHO = 4, 64, 1024, 0.9
 
 # mamba2-130m (src/repro/configs/mamba2_130m.py): its parameter tree, as
@@ -81,7 +100,15 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                         "src/repro/kernels/srht_fused.py:191"),
     "srht_gram_apply": ("src/repro_torch/kernels/csrc/srht_fused.cu",
                         "src/repro/kernels/srht_fused.py:240"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:77"),
 }
+ESTIMATOR_KERNELS = ("fwht", "fwht_rowsigns", "srht_decode_sum", "srht_gram_apply")
+
+# the serving path: gemma3-4b at full width (src/repro/configs/gemma3_4b.py)
+GEMMA3_4B_PARAMS = 3_879_907_840
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_SEED = 4, 2048, 32, 0
+SERVE_WINDOWS = {1024: 29, 0: 5}  # window -> attention layers of gemma3-4b with it
 
 
 def log(msg: str) -> None:
@@ -357,7 +384,7 @@ def phase_main_path(tree: dict) -> dict:
             "bytes_sent_over_full": info["bytes_sent"] / info["full_bytes"],
         })
     launches = ops.launch_counts()  # ... and closes here
-    missing = [name for name in KERNELS if launches.get(name, 0) == 0]
+    missing = [name for name in ESTIMATOR_KERNELS if launches.get(name, 0) == 0]
     if missing:
         fail(f"the main path launched no {missing}")
 
@@ -379,27 +406,41 @@ def phase_main_path(tree: dict) -> dict:
     return dict(launches)
 
 
-def phase_profile(tree: dict) -> dict:
-    """Where one shared-randomness round's time goes: device time by kernel
-    (torch.profiler) against the round's wall time."""
-    from repro_torch.dist import collectives
-
-    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act) as prof:
-        t0 = time.perf_counter()
-        collectives.compressed_mean_tree(_spec(True, "auto"), 5, tree, device=DEV)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+def _device_ms_by_kernel(prof) -> dict:
     by_name = {}
     for ev in prof.key_averages():
         # device-side events only: the aten ops' own entries repeat their kernels' time
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
             by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
+    return by_name
+
+
+def _profiled(fn) -> tuple:
+    """(device ms by kernel, wall ms) of one synchronised call of ``fn``."""
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = _device_ms_by_kernel(prof)
     device_ms = sum(by_name.values())
     if device_ms <= 0:
-        fail("the profiler saw no device time in a round")
-    if device_ms > wall_ms:  # one stream: more device time than wall time is a miscount
+        fail("the profiler saw no device time")
+    if device_ms > wall_ms:
         fail(f"the profile counts {device_ms} ms of device time in {wall_ms} ms of wall time")
+    return by_name, wall_ms
+
+
+def phase_profile(tree: dict) -> dict:
+    """Where one shared-randomness round's time goes: device time by kernel
+    (torch.profiler) against the round's wall time."""
+    from repro_torch.dist import collectives
+
+    by_name, wall_ms = _profiled(
+        lambda: collectives.compressed_mean_tree(_spec(True, "auto"), 5, tree, device=DEV))
+    device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {"wall_ms": wall_ms, "device_ms": device_ms,
            "idle_share": 1.0 - device_ms / wall_ms,
@@ -440,7 +481,231 @@ def phase_small_reference() -> None:
     log("small tree: card (kernels) vs CPU (plain) ok")
 
 
-# -------------------------------------------------------------------- phase 5
+# -------------------------------------------------------------------- phase 7
+
+def _flash_tol(dtype, window: int, q_offset: int) -> tuple:
+    """(atol, rtol): the JAX package's tolerances for its kernel against the
+    oracle (tests/test_flash_attention.py)."""
+    if dtype == torch.bfloat16:
+        return 2e-2, 2e-2
+    return (3e-5, 1e-4) if window or q_offset else (2e-5, 2e-5)
+
+
+def _qkv(g, n_kv, rep, sq, sk, dh, dtype):
+    return tuple(torch.randn(shape, generator=g, device=DEV).to(dtype)
+                 for shape in ((n_kv * rep, sq, dh), (n_kv, sk, dh), (n_kv, sk, dh)))
+
+
+def phase_flash_checks(errs: Errors) -> dict:
+    """K5 against its plain version on a grid, then at the serve shape; ->
+    the serve-shape inputs (bf16) for the timing phase."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=DEV).manual_seed(77)
+    n, by_dtype = 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in (64, 128, 256):
+            for rep in (1, 2):
+                for window in (0, 64, 1024):
+                    # (Sq, Sk, q_offset): ragged square, offset, ragged offset
+                    for sq, sk, q_offset in ((200, 200, 0), (128, 512, 384), (100, 484, 384)):
+                        q, k, v = _qkv(g, 2, rep, sq, sk, dh, dtype)
+                        kw = dict(rep=rep, window=window, q_offset=q_offset)
+                        atol, rtol = _flash_tol(dtype, window, q_offset)
+                        got = ops.flash_attention(q, k, v, use_kernel="force", **kw)
+                        want = ops.flash_attention(q, k, v, use_kernel="never", **kw)
+                        errs.check("flash_attention", got, want, exact=False, rtol=rtol,
+                                   atol=atol, what=f"{dtype} dh={dh} rep={rep} window={window} "
+                                                   f"Sq={sq} Sk={sk} q_offset={q_offset}")
+                        err = float((got.float() - want.float()).abs().max())
+                        by_dtype[str(dtype)] = max(by_dtype.get(str(dtype), 0.0), err)
+                        n += 1
+    serve_in = _qkv(g, 16, 2, SERVE_PROMPT, SERVE_PROMPT, 256, torch.bfloat16)
+    for window in SERVE_WINDOWS:
+        errs.check("flash_attention",
+                   ops.flash_attention(*serve_in, rep=2, window=window, use_kernel="force"),
+                   ops.flash_attention(*serve_in, rep=2, window=window, use_kernel="never"),
+                   exact=False, rtol=2e-2, atol=2e-2, what=f"serve shape window={window}")
+    torch.cuda.synchronize()
+    log(f"flash attention vs plain: {n} grid cells and the serve shape (window 1024, 0) ok; "
+        f"max abs err on the grid by dtype {by_dtype}, overall {errs.max['flash_attention']}")
+    return {"q": serve_in[0], "k": serve_in[1], "v": serve_in[2]}
+
+
+# -------------------------------------------------------------------- phase 8
+
+def _prefill(params, cfg, prompts, use_kernel: str):
+    from repro_torch.models import transformer
+
+    cache = transformer.init_cache(cfg, prompts.shape[0], prompts.shape[1] + SERVE_GEN,
+                                   device=prompts.device)
+    return transformer.prefill(params, cfg, cache, prompts, use_kernel=use_kernel)[0][:, -1]
+
+
+def phase_serve() -> dict:
+    """gemma3-4b at full width through launch.serve.serve: K5 must launch
+    once per attention layer of the prefill; the prefill's last-position
+    logits against the plain versions on the card in bf16 and float32."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    cfg = configs.preset_config("gemma3-4b", "full").replace(attn_impl="flash")
+    if cfg.n_params() != GEMMA3_4B_PARAMS or cfg.n_layers != sum(SERVE_WINDOWS.values()):
+        fail(f"gemma3-4b has {cfg.n_params()} parameters in {cfg.n_layers} layers")
+    layer_windows = {w: sum(1 for s in cfg.layers if s.window == w) for w in SERVE_WINDOWS}
+    if layer_windows != SERVE_WINDOWS:
+        fail(f"gemma3-4b's attention windows are {layer_windows}")
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, torch.Generator(device=DEV).manual_seed(SERVE_SEED))
+    torch.cuda.synchronize()
+    log(f"serve: gemma3-4b, {GEMMA3_4B_PARAMS} float32 parameters on the card in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()  # the serving path's window opens here
+    res = serve.serve(cfg, params, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+                      seed=SERVE_SEED, device=DEV)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()  # ... and closes here
+    if launches != {"flash_attention": cfg.n_layers}:
+        fail(f"the serving path launched {launches}, not flash_attention x {cfg.n_layers}")
+    tokens, logits = res["tokens"], res["prefill_logits"][:, -1]
+    if tokens.shape != (SERVE_BATCH, SERVE_GEN) or not torch.isfinite(logits).all():
+        fail(f"serve gave tokens {tuple(tokens.shape)}, finite logits {bool(torch.isfinite(logits).all())}")
+    if int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
+        fail("serve generated a token outside the vocabulary")
+
+    prompts = res["prompts"]
+    plain = _prefill(params, cfg, prompts, "never")
+    gap_bf16 = rel_l2(logits, plain)
+    first_same = bool(torch.equal(tokens[:, 0].long(),
+                                  torch.argmax(plain[:, : cfg.vocab_size], -1)))
+    cfg32 = cfg.replace(dtype="float32")
+    k32 = _prefill(params, cfg32, prompts, "auto")
+    p32 = _prefill(params, cfg32, prompts, "never")
+    gap_f32 = rel_l2(k32, p32)
+    first_same32 = bool(torch.equal(torch.argmax(k32[:, : cfg.vocab_size], -1),
+                                    torch.argmax(p32[:, : cfg.vocab_size], -1)))
+    del plain, k32, p32
+
+    # warm prefill wall time, host clock around a synchronised call
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _prefill(params, cfg, prompts, "auto")
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out = {
+        "launches": launches,
+        "tokens_request0": tokens[0].tolist(),
+        "prefill_ms_first": res["prefill_s"] * 1e3,
+        "prefill_ms_warm_median3": statistics.median(walls),
+        "decode_ms_per_step": res["decode_s"] * 1e3 / (SERVE_GEN - 1),
+        "decode_tokens_per_s": SERVE_BATCH * (SERVE_GEN - 1) / res["decode_s"],
+        "logits_gap_bf16": gap_bf16, "first_tokens_agree_bf16": first_same,
+        "logits_gap_f32": gap_f32, "first_tokens_agree_f32": first_same32,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    log("serve " + json.dumps(out))
+    if not gap_bf16 <= 5e-2:
+        fail(f"bf16 prefill: kernel and plain logits differ by {gap_bf16} (limit 5e-2)")
+    if not gap_f32 <= 1e-4:
+        fail(f"float32 prefill: kernel and plain logits differ by {gap_f32} (limit 1e-4)")
+    out["profile"] = phase_serve_profile(params, cfg, prompts)
+    return out
+
+
+def phase_serve_profile(params, cfg, prompts) -> dict:
+    """Where one bf16 prefill's time goes, and one decode step's after it:
+    device time by kernel (torch.profiler) against wall time; K5's share."""
+    from repro_torch.models import transformer
+    from repro_torch.train import make_decode_step
+
+    cache = transformer.init_cache(cfg, prompts.shape[0], prompts.shape[1] + SERVE_GEN,
+                                   device=prompts.device)
+    by_name, wall_ms = _profiled(lambda: transformer.prefill(params, cfg, cache, prompts))
+    device_ms = sum(by_name.values())
+    k5_ms = sum(ms for name, ms in by_name.items() if "flash_attention_kernel" in name)
+    if k5_ms <= 0:
+        fail("the profiled prefill shows no flash-attention kernel")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {"wall_ms": wall_ms, "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
+           "k5_ms": k5_ms, "k5_share_of_device": k5_ms / device_ms,
+           "top_device_ms": [[name[:60], ms] for name, ms in top]}
+    log("serve profile, prefill " + json.dumps(out))
+    tok = torch.zeros((prompts.shape[0], 1), dtype=torch.int32, device=prompts.device)
+    pos = torch.full_like(tok, prompts.shape[1])
+    decode = make_decode_step(cfg)
+    by_name, wall_ms = _profiled(lambda: decode(params, cache, tok, pos))
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    out["decode_step"] = {"wall_ms": wall_ms, "device_ms": device_ms,
+                          "idle_share": 1.0 - device_ms / wall_ms,
+                          "top_device_ms": [[name[:60], ms] for name, ms in top]}
+    log("serve profile, decode step " + json.dumps(out["decode_step"]))
+    return out
+
+
+# -------------------------------------------------------------------- phase 9
+
+def _greedy(params, cfg, prompts, steps: int):
+    """Prefill and ``steps`` greedy decode steps; -> (tokens, logits per step)."""
+    from repro_torch.models import transformer
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    b, s = prompts.shape
+    cache = transformer.init_cache(cfg, b, s + steps, device=prompts.device)
+    logits, cache = make_prefill_step(cfg)(params, cache, prompts)
+    tok = torch.argmax(logits[:, -1, : cfg.vocab_size], -1)[:, None].int()
+    toks, all_logits = [tok], [logits[:, -1]]
+    decode = make_decode_step(cfg)
+    for i in range(steps):
+        pos = torch.full((b, 1), s + i, dtype=torch.int32, device=prompts.device)
+        nxt, lg, cache = decode(params, cache, tok, pos)
+        tok = nxt[:, None].int()
+        toks.append(tok)
+        all_logits.append(lg[:, -1])
+    return torch.cat(toks, 1), torch.stack(all_logits)
+
+
+def phase_tiny_gemma() -> None:
+    """Tiny gemma with the same float32 weights: the kernel on the card,
+    the plain versions on the CPU."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+
+    cfg = configs.preset_config("gemma3-4b", "tiny").replace(attn_impl="flash")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(3))
+    prompts = torch.randint(0, cfg.vocab_size, (3, 40), generator=torch.Generator().manual_seed(4),
+                            dtype=torch.int32)
+    card = _move(params, DEV)
+    before = ops.launch_counts().get("flash_attention", 0)
+    got_tok, got = _greedy(card, cfg, prompts.to(DEV), 8)
+    if ops.launch_counts().get("flash_attention", 0) - before != cfg.n_layers:
+        fail("tiny gemma's prefill on the card did not run the flash-attention kernel")
+    want_tok, want = _greedy(params, cfg, prompts, 8)
+    gap = rel_l2(got.cpu(), want)
+    if not gap <= 1e-4 or not torch.equal(got_tok.cpu(), want_tok):
+        fail(f"tiny gemma: card vs CPU logits gap {gap}, tokens equal "
+             f"{torch.equal(got_tok.cpu(), want_tok)}")
+    log(f"tiny gemma: card (kernel) vs CPU (plain): logits rel L2 {gap:.3e}, "
+        f"greedy tokens equal over 8 decode steps")
+
+
+def _move(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _move(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_move(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+# ------------------------------------------------------------------- phase 10
 
 def _library_calls(inp: dict) -> dict:
     """One float32 PyTorch call per kernel computing the same function, with
@@ -495,6 +760,71 @@ def phase_timing(calls: dict, launches: dict, errs: Errors, inputs: dict) -> lis
     return out
 
 
+
+def _flash_pairs(sq: int, sk: int, window: int) -> int:
+    """(query, key) pairs the mask keeps for q_offset 0."""
+    total = 0
+    for i in range(sq):
+        lo = max(0, i - window + 1) if window else 0
+        total += min(i, sk - 1) - lo + 1
+    return total
+
+
+def phase_flash_timing(inp: dict, launches: int, errs: Errors) -> dict:
+    """K5 at the serve shape, windowed and global: kernel, plain version,
+    bound, and scaled_dot_product_attention on K/V repeated beforehand.
+    The entry's figures are per launch, weighted as the prefill runs them
+    (29 windowed, 5 global)."""
+    from repro_torch.kernels import ops
+
+    q, k, v = inp["q"], inp["k"], inp["v"]
+    n_q, sq, dh = q.shape
+    rep = n_q // k.shape[0]
+    # (1, heads, S, dh), K/V repeated to every query head, outside the timing
+    q4 = q[None]
+    k_rep = torch.repeat_interleave(k, rep, 0)[None]
+    v_rep = torch.repeat_interleave(v, rep, 0)[None]
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v)) + q.numel() * q.element_size()
+    idx = torch.arange(sq, device=DEV)
+    per_window = {}
+    for window in SERVE_WINDOWS:
+        call = lambda u, w=window: ops.flash_attention(q, k, v, rep=rep, window=w, use_kernel=u)
+        if window:
+            mask = (idx[None, :] <= idx[:, None]) & (idx[:, None] - idx[None, :] < window)
+            lib = lambda m=mask: torch.nn.functional.scaled_dot_product_attention(
+                q4, k_rep, v_rep, attn_mask=m)
+        else:
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k_rep, v_rep, is_causal=True)
+        gap = rel_l2(lib()[0].float(), call("force").float())
+        if not gap <= 2e-2:
+            fail(f"flash_attention window={window}: the library yardstick differs by {gap}")
+        n_ops = 4 * dh * n_q * _flash_pairs(sq, sq, window)
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / BF16_OPS_PER_S * 1e3
+        per_window[window] = {
+            "ms": time_ms(lambda: call("force")),
+            "plain_ms": time_ms(lambda: call("never"), reps=3, warmup=1),
+            "library_ms": time_ms(lib),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "gflop": n_ops / 1e9, "mbytes": n_bytes / 1e6, "library_rel_gap": gap,
+        }
+        log(f"flash_attention window={window}: " + json.dumps(per_window[window]))
+    weights = SERVE_WINDOWS
+    total = sum(weights.values())
+    mean = {key: sum(per_window[w][key] * c for w, c in weights.items()) / total
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    bound_by = {per_window[w]["bound_by"] for w in weights}
+    return {
+        "name": "flash_attention", "route": "cuda", "source": KERNELS["flash_attention"][0],
+        "replaces": KERNELS["flash_attention"][1], "launches": launches,
+        "max_abs_err": errs.max["flash_attention"], **mean,
+        "bound_by": bound_by.pop() if len(bound_by) == 1 else "operations",
+        "per_window": {str(w): per_window[w] for w in weights},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -517,7 +847,11 @@ def main() -> int:
     phase_profile(tree)
     del tree
     phase_small_reference()
+    flash_inputs = phase_flash_checks(errs)
+    serve_out = phase_serve()
+    phase_tiny_gemma()
     kernels = phase_timing(calls, launches, errs, inputs)
+    kernels.append(phase_flash_timing(flash_inputs, serve_out["launches"]["flash_attention"], errs))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,15 +1,19 @@
 """Carry the JAX package's state into the port, through numpy.
 
-The system has no model weights: its state is the per-client SRHT maps of a
-round and the eigenvalue bank behind beta. The port draws its maps with its
-own generator (core.random), so a comparison with the JAX package carries
-the JAX draws and bank across, as numpy arrays:
+The estimator's state is the per-client SRHT maps of a round and the
+eigenvalue bank behind beta. The port draws its maps with its own generator
+(core.random), so a comparison with the JAX package carries the JAX draws
+and bank across, as numpy arrays:
 
 - ``draws_from_numpy`` takes the ``_fused_draws`` layout of
   repro.core.estimators.rand_proj_spatial: signs (n, 1|C, d) and rows
   (n, 1|C, k), int32 rows becoming int64;
 - ``bank_from_numpy`` takes the (trials, nk) bank of repro.core.beta;
-- ``tree_from_numpy`` takes a tree (dicts, lists, tuples) of arrays.
+- ``tree_from_numpy`` takes a tree (dicts, lists, tuples) of arrays;
+- ``params_from_numpy`` takes a model's ``init_params`` tree and
+  ``cache_from_numpy`` its KV cache, each checked leaf by leaf against the
+  port's own layout (the stacked ``blocks``, the ``prologue`` / ``epilogue``
+  tuples), so the two packages' models compare leaf by leaf.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .models import transformer
 
 
 def draws_from_numpy(draws: dict, device=None) -> dict:
@@ -48,3 +53,39 @@ def tree_from_numpy(tree, device=None):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_from_numpy(v, dev) for v in tree)
     return torch.from_numpy(np.array(tree)).to(dev)
+
+
+def _checked(tree, like, dtype_of, dev, path="") -> object:
+    """``tree``'s arrays as tensors on ``dev``, laid out as ``like``; raises
+    ValueError where a key, a length or a leaf's shape differs."""
+    if isinstance(like, dict):
+        if not isinstance(tree, dict) or set(tree) != set(like):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+            raise ValueError(f"{path or 'tree'}: keys {got} != {sorted(like)}")
+        return {k: _checked(tree[k], like[k], dtype_of, dev, f"{path}/{k}") for k in like}
+    if isinstance(like, tuple) and not isinstance(like, transformer.ParamDef):
+        if not isinstance(tree, (tuple, list)) or len(tree) != len(like):
+            raise ValueError(f"{path}: expected a sequence of {len(like)} layers")
+        return tuple(_checked(t, lk, dtype_of, dev, f"{path}/{i}")
+                     for i, (t, lk) in enumerate(zip(tree, like)))
+    shape = tuple(like.shape)
+    arr = np.asarray(tree)
+    if arr.shape != shape:
+        raise ValueError(f"{path}: shape {arr.shape} != the port's {shape}")
+    # floats (bfloat16 included) pass through float32, which holds them exactly
+    arr = arr.astype(np.float32) if arr.dtype.kind not in "iub" else np.array(arr)
+    return torch.from_numpy(arr).to(device=dev, dtype=dtype_of(like))
+
+
+def params_from_numpy(cfg, tree, device=None) -> dict:
+    """The JAX package's ``init_params(cfg, key)`` tree, with numpy leaves
+    (any float dtype), as the port's parameters in ``cfg.params_dtype``."""
+    return _checked(tree, transformer.param_defs(cfg), lambda _: cfg.params_dtype,
+                    resolve_device(device))
+
+
+def cache_from_numpy(cfg, tree, batch: int, seq_len: int, device=None) -> dict:
+    """The JAX package's ``init_cache(cfg, batch, seq_len)`` layout, with
+    numpy leaves, as the port's cache (k, v in the compute dtype, pos int32)."""
+    like = transformer.init_cache(cfg, batch, seq_len, device="meta")
+    return _checked(tree, like, lambda t: t.dtype, resolve_device(device))

@@ -18,7 +18,7 @@ import subprocess
 import threading
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("fwht", "srht_fused")
+SOURCES = ("fwht", "srht_fused", "flash_attention")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-lineinfo",
@@ -35,6 +35,10 @@ SIGNATURES = {
         "fwht_rowsigns_f32": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P),
         "srht_decode_sum_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
         "srht_gram_apply_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    },
+    "flash_attention": {
+        "flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+        "flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     },
 }
 

@@ -1,4 +1,4 @@
-"""Public SRHT ops: the hand-written CUDA kernel on a CUDA tensor, the plain
+"""Public ops: the hand-written CUDA kernel on a CUDA tensor, the plain
 version on a CPU tensor (port of repro/kernels/ops.py).
 
 ``use_kernel`` mirrors the JAX package's ``use_pallas``:
@@ -12,7 +12,8 @@ On a CUDA tensor there is no fallback: a build or launch failure raises.
 
 ``fwht``, ``srht_encode`` and ``srht_decode`` run the FWHT kernel
 (csrc/fwht.cu); ``srht_encode_batch``, ``srht_decode_sum`` and
-``srht_gram_apply`` the fused kernels (csrc/srht_fused.cu).
+``srht_gram_apply`` the fused kernels (csrc/srht_fused.cu);
+``flash_attention`` the flash-attention kernel (csrc/flash_attention.cu).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import math
 import numpy as np
 import torch
 
+from . import flash_attention as _flash
 from . import fwht as _fwht
 from . import ref as _ref
 from . import srht_fused as _fused
@@ -44,12 +46,13 @@ def _use_kernel(t: torch.Tensor, use_kernel: str) -> bool:
 
 def launch_counts() -> dict:
     """Kernel launches since the last ``reset_launch_counts``, by kernel."""
-    return {**_fwht.LAUNCHES, **_fused.LAUNCHES}
+    return {**_fwht.LAUNCHES, **_fused.LAUNCHES, **_flash.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     _fwht.LAUNCHES.clear()
     _fused.LAUNCHES.clear()
+    _flash.LAUNCHES.clear()
 
 
 def _fwht_plain(x2: torch.Tensor, signs, scale: float) -> torch.Tensor:
@@ -149,6 +152,18 @@ def srht_gram_apply(v: torch.Tensor, signs: torch.Tensor, mask: torch.Tensor, *,
             scale=1.0 / v.shape[-1],
         )
     return _ref.srht_gram_apply_ref(v, signs, mask)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, rep: int,
+                    window: int = 0, q_offset: int = 0, use_kernel: str = "auto") -> torch.Tensor:
+    """Causal GQA flash attention; q (N_q, Sq, dh), k/v (N_kv, Sk, dh), kv
+    head = q head // rep, optional sliding ``window``, queries at positions
+    ``q_offset + i``. -> (N_q, Sq, dh) in q's dtype. The CUDA kernel picks
+    its own tiles, so the Pallas wrapper's q_tile / kv_tile are not taken."""
+    if _use_kernel(q, use_kernel):
+        return _flash.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                           rep=rep, window=window, q_offset=q_offset)
+    return _ref.flash_attention_ref(q, k, v, rep=rep, window=window, q_offset=q_offset)
 
 
 def srht_rows_matrix(signs: torch.Tensor, rows: torch.Tensor, d: int) -> torch.Tensor:

@@ -1,10 +1,14 @@
-"""Plain PyTorch versions of the SRHT kernels (port of repro/kernels/ref.py).
+"""Plain PyTorch versions of the kernels (port of repro/kernels/ref.py).
 
 They are the correctness contract of the CUDA kernels: each kernel computes
 the same function with the same operations in the same order, so on the
 golden grid of small integers (every partial sum exact in float32) kernel and
 plain version agree bit for bit. The scale is an explicit multiply AFTER the
 transform, where the fused kernels apply it.
+
+``flash_attention_ref`` is the flash-attention kernel's plain version; it
+materialises the (N_q, Sq, Sk) scores and agrees with the kernel to float
+tolerance, not bitwise (the kernel's online softmax sums in another order).
 
 The wrappers in ``kernels.ops`` run these on CPU tensors, and on CUDA tensors
 only when asked with ``use_kernel="never"``.
@@ -47,6 +51,29 @@ def srht_encode_ref(x: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor) ->
     d = x.shape[-1]
     t = fwht_ref(x * signs) * (1.0 / np.sqrt(d))
     return torch.index_select(t, -1, rows.long())
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, rep: int,
+                        window: int = 0, q_offset: int = 0) -> torch.Tensor:
+    """Causal GQA attention over absolute positions, in float32.
+
+    q: (N_q, Sq, dh); k, v: (N_kv, Sk, dh); N_q = N_kv * rep, kv head = q
+    head // rep. Query i sits at position q_offset + i and attends to key j
+    when j <= q_offset + i (and q_offset + i - j < window when window > 0).
+    -> (N_q, Sq, dh) in q's dtype."""
+    sq, dh = q.shape[1], q.shape[2]
+    k = torch.repeat_interleave(k, rep, dim=0)
+    v = torch.repeat_interleave(v, rep, dim=0)
+    sk = k.shape[1]
+    s = torch.einsum("nqd,nkd->nqk", q.float(), k.float()) / np.sqrt(dh)
+    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = k_pos <= q_pos
+    if window > 0:
+        mask &= q_pos - k_pos < window
+    s = torch.where(mask[None], s, -1e9)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("nqk,nkd->nqd", p, v.float()).to(q.dtype)
 
 
 def srht_scatter_ref(z: torch.Tensor, rows: torch.Tensor, d: int) -> torch.Tensor:

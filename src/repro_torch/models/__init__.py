@@ -1,0 +1,9 @@
+from .common import LayerSpec, ModelConfig  # noqa: F401
+from .transformer import (  # noqa: F401
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    param_defs,
+    prefill,
+)

@@ -1,0 +1,312 @@
+"""Config -> model (port of repro/models/transformer.py): parameter
+definitions, init, forward, prefill and decode for attention-only models.
+
+``param_defs(cfg)`` is the one structural source of truth, a tree of
+ParamDef with the JAX package's layout: the repeated block's weights are
+stacked on a leading "layers" axis under ``blocks``, the irregular layers sit
+in the ``prologue`` / ``epilogue`` tuples, so the two packages' trees compare
+leaf by leaf (``interop.params_from_numpy`` carries one across).
+
+``backbone`` runs the stacked blocks in a Python loop; it computes what the
+JAX scan computes. ``remat`` and ``force_unroll`` are training and
+cost-calibration knobs of the JAX package and change nothing here; its
+activation-sharding constraint is the identity on one device and is left
+out. Mamba layers and the MoE FFN are not ported yet and raise
+NotImplementedError. Caches are updated in place (models/attention.py).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from . import attention, layers, moe
+from .common import LayerSpec, ModelConfig
+
+
+class ParamDef(NamedTuple):
+    shape: tuple
+    axes: tuple       # logical axis names, len == len(shape)
+    init: str = "normal"   # normal | zeros | ones | scaled | a_log | dt_bias
+    scale: float = 0.02
+
+
+def map_defs(fn, tree):
+    """``tree`` with every ParamDef leaf replaced by ``fn(leaf)``."""
+    if isinstance(tree, ParamDef):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_defs(fn, v) for k, v in tree.items()}
+    return tuple(map_defs(fn, v) for v in tree)
+
+
+def def_leaves(tree) -> list:
+    """The ParamDef leaves of ``tree``."""
+    out = []
+    map_defs(out.append, tree)
+    return out
+
+
+# --------------------------------------------------------------- definitions
+
+
+def _attn_defs(cfg: ModelConfig):
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    out = {
+        "norm": ParamDef((d,), (None,), "ones"),
+        "wq": ParamDef((d, h * dh), ("embed", "heads")),
+        "wk": ParamDef((d, kv * dh), ("embed", "heads")),
+        "wv": ParamDef((d, kv * dh), ("embed", "heads")),
+        "wo": ParamDef((h * dh, d), ("heads", "embed"), "scaled"),
+    }
+    if cfg.qkv_bias:
+        out["bq"] = ParamDef((h * dh,), ("heads",), "zeros")
+        out["bk"] = ParamDef((kv * dh,), ("heads",), "zeros")
+        out["bv"] = ParamDef((kv * dh,), ("heads",), "zeros")
+    return out
+
+
+def _dense_ffn_defs(cfg: ModelConfig, d_ff: int):
+    d = cfg.d_model
+    out = {
+        "norm": ParamDef((d,), (None,), "ones"),
+        "w_up": ParamDef((d, d_ff), ("embed", "ff")),
+        "w_down": ParamDef((d_ff, d), ("ff", "embed"), "scaled"),
+    }
+    if cfg.act == "silu":
+        out["w_gate"] = ParamDef((d, d_ff), ("embed", "ff"))
+    return out
+
+
+def _moe_defs(cfg: ModelConfig):
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    out = {
+        "norm": ParamDef((d,), (None,), "ones"),
+        "router": ParamDef((d, e), ("embed", None)),
+        "w_gate": ParamDef((e, d, f), ("experts", "embed", "ff")),
+        "w_up": ParamDef((e, d, f), ("experts", "embed", "ff")),
+        "w_down": ParamDef((e, f, d), ("experts", "ff", "embed"), "scaled"),
+    }
+    if cfg.n_shared_experts > 0:
+        fs = cfg.n_shared_experts * f
+        shared = {
+            "w_up": ParamDef((d, fs), ("embed", "ff")),
+            "w_down": ParamDef((fs, d), ("ff", "embed"), "scaled"),
+        }
+        if cfg.act == "silu":
+            shared["w_gate"] = ParamDef((d, fs), ("embed", "ff"))
+        out["shared"] = shared
+    return out
+
+
+def _mamba_defs(cfg: ModelConfig):
+    d, di = cfg.d_model, cfg.mamba_d_inner
+    nh, conv_dim = cfg.mamba_heads, cfg.mamba_conv_dim
+    p_in = 2 * di + 2 * cfg.mamba_ngroups * cfg.d_state + nh
+    if cfg.mamba_split_proj:
+        proj = {
+            "in_z": ParamDef((d, di), ("embed", "mamba_inner")),
+            "in_x": ParamDef((d, di), ("embed", "mamba_inner")),
+            "in_bc": ParamDef((d, 2 * cfg.mamba_ngroups * cfg.d_state), ("embed", None)),
+            "in_dt": ParamDef((d, nh), ("embed", None)),
+        }
+    else:
+        proj = {"in_proj": ParamDef((d, p_in), ("embed", "mamba_inner"))}
+    return {
+        "norm": ParamDef((d,), (None,), "ones"),
+        **proj,
+        "conv_w": ParamDef((conv_dim, cfg.d_conv), ("mamba_inner", None)),
+        "conv_b": ParamDef((conv_dim,), ("mamba_inner",), "zeros"),
+        "dt_bias": ParamDef((nh,), (None,), "dt_bias"),
+        "a_log": ParamDef((nh,), (None,), "a_log"),
+        "d_skip": ParamDef((nh,), (None,), "ones"),
+        "out_norm": ParamDef((di,), ("mamba_inner",), "ones"),
+        "out_proj": ParamDef((di, d), ("mamba_inner", "embed"), "scaled"),
+    }
+
+
+def _layer_defs(cfg: ModelConfig, spec: LayerSpec):
+    out = {}
+    if spec.kind == "attn":
+        out["attn"] = _attn_defs(cfg)
+    else:
+        out["mamba"] = _mamba_defs(cfg)
+    if spec.ffn == "dense":
+        out["ffn"] = _dense_ffn_defs(cfg, cfg.d_ff)
+    elif spec.ffn == "moe":
+        out["ffn"] = _moe_defs(cfg)
+    return out
+
+
+def _stack_def(defn: ParamDef, n: int) -> ParamDef:
+    return ParamDef((n,) + defn.shape, ("layers",) + defn.axes, defn.init, defn.scale)
+
+
+def param_defs(cfg: ModelConfig):
+    vp, d = cfg.vocab_padded, cfg.d_model
+    tree = {
+        "embed": ParamDef((vp, d), ("vocab", "embed")),
+        "final_norm": ParamDef((d,), (None,), "ones"),
+        "prologue": tuple(_layer_defs(cfg, s) for s in cfg.prologue),
+        "epilogue": tuple(_layer_defs(cfg, s) for s in cfg.epilogue),
+    }
+    if cfg.n_blocks > 0:
+        block = {f"l{i:02d}": _layer_defs(cfg, s) for i, s in enumerate(cfg.block_pattern)}
+        tree["blocks"] = map_defs(lambda pd: _stack_def(pd, cfg.n_blocks), block)
+    else:
+        tree["blocks"] = {}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ParamDef((d, vp), ("embed", "vocab"))
+    return tree
+
+
+# --------------------------------------------------------------------- init
+
+
+def _init_leaf(defn: ParamDef, generator: torch.Generator, dtype: torch.dtype) -> torch.Tensor:
+    dev = generator.device
+    if defn.init == "zeros":
+        return torch.zeros(defn.shape, dtype=dtype, device=dev)
+    if defn.init == "ones":
+        return torch.ones(defn.shape, dtype=dtype, device=dev)
+    if defn.init == "a_log":
+        base = torch.log(torch.linspace(1.0, 16.0, defn.shape[-1], device=dev))
+        return torch.broadcast_to(base, defn.shape).to(dtype).clone()
+    if defn.init == "dt_bias":
+        dt = torch.exp(torch.linspace(math.log(1e-3), math.log(1e-1), defn.shape[-1], device=dev))
+        return torch.broadcast_to(torch.log(torch.expm1(dt)), defn.shape).to(dtype).clone()
+    scale = defn.scale
+    if defn.init == "scaled":
+        scale = defn.scale / max(1.0, (2.0 * 24.0) ** 0.5)  # residual-branch damping
+    out = torch.randn(defn.shape, generator=generator, dtype=torch.float32, device=dev)
+    return out.mul_(scale).to(dtype)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator):
+    """Random parameters with the JAX package's recipes (normal * scale,
+    damped residual outputs, ones, zeros), drawn from ``generator`` on its
+    device. The draws are torch's, not jax.random's."""
+    return map_defs(lambda d: _init_leaf(d, generator, cfg.params_dtype), param_defs(cfg))
+
+
+# ------------------------------------------------------------------ forward
+
+
+def _run_layer(cfg, spec, p, x, aux, positions, cache, use_kernel):
+    if spec.kind != "attn":
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba layers are not ported to repro_torch yet (ROADMAP A.11, Mamba)")
+    x, nc = attention.attn_layer(
+        x, p["attn"], cfg, spec, positions=positions,
+        cache=None if cache is None else cache["mix"], use_kernel=use_kernel,
+    )
+    if spec.ffn != "none":
+        x, a = moe.ffn_layer(x, p["ffn"], cfg, spec)
+        aux = aux + a
+    return x, aux, (None if cache is None else {"mix": nc})
+
+
+def _index(tree, i: int):
+    """Leaf ``i`` of every stacked leaf of ``tree`` (views, not copies)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def backbone(params, cfg: ModelConfig, x, positions, cache=None, use_kernel: str = "auto"):
+    """Run all layers. x: (B, S, D). Returns (x, aux, cache), the cache
+    updated in place (None without one)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layer_list = [(spec, params["prologue"][i], None if cache is None else cache["prologue"][i])
+                    for i, spec in enumerate(cfg.prologue)]
+    for b in range(cfg.n_blocks):
+        p_block = _index(params["blocks"], b)
+        c_block = None if cache is None else _index(cache["blocks"], b)
+        for i, spec in enumerate(cfg.block_pattern):
+            key = f"l{i:02d}"
+            layer_list.append((spec, p_block[key], None if c_block is None else c_block[key]))
+    layer_list += [(spec, params["epilogue"][i], None if cache is None else cache["epilogue"][i])
+                     for i, spec in enumerate(cfg.epilogue)]
+    for spec, p, c in layer_list:
+        x, aux, _ = _run_layer(cfg, spec, p, x, aux, positions, c, use_kernel)
+    return x, aux, cache
+
+
+def embed_inputs(params, cfg: ModelConfig, inputs):
+    if cfg.input_mode == "tokens":
+        return layers.embed_tokens(inputs, params["embed"], cfg.compute_dtype)
+    return inputs.to(cfg.compute_dtype)
+
+
+def logits_fn(params, cfg: ModelConfig, x):
+    """Final norm and the vocab projection in the compute dtype (the tied
+    embedding's transpose when ``tie_embeddings``); float32 logits over the
+    padded vocab."""
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (x @ w.to(x.dtype)).float()
+
+
+def _positions(inputs) -> torch.Tensor:
+    b, s = inputs.shape[0], inputs.shape[1]
+    return torch.arange(s, dtype=torch.int32, device=inputs.device).expand(b, s)
+
+
+def forward(params, cfg: ModelConfig, inputs, positions=None, use_kernel: str = "auto"):
+    """Train/prefill forward. inputs: (B, S) tokens or (B, S, D) embeds.
+    -> (logits (B, S, vocab_padded) float32, aux)."""
+    if positions is None:
+        positions = _positions(inputs)
+    x = embed_inputs(params, cfg, inputs)
+    x, aux, _ = backbone(params, cfg, x, positions, use_kernel=use_kernel)
+    return logits_fn(params, cfg, x), aux
+
+
+# ------------------------------------------------------------------- decode
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, device=None):
+    """Empty KV cache in the JAX package's layout (blocks stacked), zeros
+    with every position -1; ``device="meta"`` gives the shapes alone."""
+    dtype = dtype or cfg.compute_dtype
+
+    def one(spec: LayerSpec):
+        if spec.kind != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: Mamba caches are not ported to repro_torch yet (ROADMAP A.11, Mamba)")
+        return {"mix": attention.init_attn_cache(cfg, spec, batch, seq_len, dtype, device)}
+
+    cache = {
+        "prologue": tuple(one(s) for s in cfg.prologue),
+        "epilogue": tuple(one(s) for s in cfg.epilogue),
+    }
+    if cfg.n_blocks > 0:
+        block = {f"l{i:02d}": one(s) for i, s in enumerate(cfg.block_pattern)}
+        cache["blocks"] = {
+            key: {"mix": {name: t.unsqueeze(0).repeat((cfg.n_blocks,) + (1,) * t.dim())
+                          for name, t in layer["mix"].items()}}
+            for key, layer in block.items()
+        }
+    else:
+        cache["blocks"] = {}
+    return cache
+
+
+def decode_step(params, cfg: ModelConfig, cache, inputs, positions):
+    """One-token decode. inputs: (B, 1) tokens or (B, 1, D); positions: (B, 1).
+
+    Returns (logits (B, 1, vocab_padded) float32, cache), the cache updated
+    in place."""
+    x = embed_inputs(params, cfg, inputs)
+    x, _, cache = backbone(params, cfg, x, positions, cache)
+    return logits_fn(params, cfg, x), cache
+
+
+def prefill(params, cfg: ModelConfig, cache, inputs, use_kernel: str = "auto"):
+    """Prefill the cache (in place) from a full prompt; logits for the LAST
+    position only (no (B, S, vocab) tensor at long prompts)."""
+    positions = _positions(inputs)
+    x = embed_inputs(params, cfg, inputs)
+    x, _, cache = backbone(params, cfg, x, positions, cache, use_kernel=use_kernel)
+    return logits_fn(params, cfg, x[:, -1:]), cache

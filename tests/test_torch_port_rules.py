@@ -3,7 +3,9 @@
 - it imports neither JAX nor the JAX package;
 - ``default_device()`` is CUDA or an error, never a silent CPU fallback;
 - on a CPU tensor the ops run the plain versions, ``use_kernel="force"``
-  raises, and the CUDA build is never reached.
+  raises, and the CUDA build is never reached, by the estimator or by a
+  model's prefill;
+- what is not ported yet (Mamba layers, the MoE FFN) raises.
 """
 from __future__ import annotations
 
@@ -16,7 +18,10 @@ import torch
 import repro_torch
 from repro_torch.core import codec
 from repro_torch.dist import collectives
+from repro_torch import configs
 from repro_torch.kernels import _build, ops
+from repro_torch.launch import serve
+from repro_torch.models import transformer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -54,7 +59,10 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def _op_calls(x, v, signs, rows, mask):
+    kv = x[:1]  # one kv head for the two q rows: rep 2
     return {
+        "flash_attention": lambda u: ops.flash_attention(x[:, :2], kv, kv, rep=2, window=2,
+                                                         use_kernel=u),
         "fwht": lambda u: ops.fwht(x, use_kernel=u),
         "srht_encode": lambda u: ops.srht_encode(x, signs[0, 0], rows[0, 0], use_kernel=u),
         "srht_decode": lambda u: ops.srht_decode(x[..., :4], signs[0, 0], rows[0, 0], 16,
@@ -67,7 +75,7 @@ def _op_calls(x, v, signs, rows, mask):
     }
 
 
-_OPS = ["fwht", "srht_encode", "srht_decode", "srht_encode_batch", "srht_decode_sum",
+_OPS = ["flash_attention", "fwht", "srht_encode", "srht_decode", "srht_encode_batch", "srht_decode_sum",
         "srht_gram_apply"]
 
 
@@ -104,3 +112,36 @@ def test_unported_options_raise():
         codec.Pipeline([spec]).mean_estimate(0, torch.randn(2, 1, 32), device="cpu")
     with pytest.raises(ValueError):
         ops.fwht(torch.randn(2, 8), use_kernel="sometimes")
+
+
+def _tiny(arch: str, **over):
+    cfg = configs.preset_config(arch, "tiny").replace(**over)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12), generator=torch.Generator().manual_seed(1))
+    return cfg, params, tokens
+
+
+def test_cpu_prefill_never_touches_the_kernel_build(monkeypatch):
+    def no_build():
+        raise AssertionError("the CPU prefill reached the CUDA build")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    cfg, params, tokens = _tiny("gemma3-4b", attn_impl="flash")
+    before = ops.launch_counts()
+    cache = transformer.init_cache(cfg, 2, 16, device="cpu")
+    logits, _ = transformer.prefill(params, cfg, cache, tokens)
+    assert logits.shape == (2, 1, cfg.vocab_padded) and torch.isfinite(logits).all()
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "mixtral-8x22b"])
+def test_unported_layers_raise(arch):
+    cfg, params, tokens = _tiny(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        transformer.forward(params, cfg, tokens)
+
+
+def test_serve_without_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--preset", "tiny", "--prompt-len", "8", "--gen", "2"])
