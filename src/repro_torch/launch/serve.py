@@ -22,8 +22,8 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(cfg, params, *, batch: int, prompt_len: int, gen: int, seed: int = 0, device=None,
-          use_kernel: str = "auto") -> dict:
+def serve(cfg, params, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
+          device=None) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens (drawn from
     ``seed + 1``), then ``gen - 1`` greedy decode steps.
 
@@ -32,7 +32,7 @@ def serve(cfg, params, *, batch: int, prompt_len: int, gen: int, seed: int = 0, 
     "prefill_s", "decode_s": wall seconds, the device synchronised}."""
     dev = resolve_device(device)
     cache = init_cache(cfg, batch, prompt_len + gen, device=dev)
-    prefill = make_prefill_step(cfg, use_kernel)
+    prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g, device=dev,

@@ -16,8 +16,8 @@ def make_decode_step(cfg):
     return decode_step
 
 
-def make_prefill_step(cfg, use_kernel: str = "auto"):
+def make_prefill_step(cfg):
     def prefill(params, cache, tokens):
-        return transformer.prefill(params, cfg, cache, tokens, use_kernel=use_kernel)
+        return transformer.prefill(params, cfg, cache, tokens)
 
     return prefill
