@@ -28,28 +28,38 @@ result):
 6. a small tree through the kernels on the card and through the plain
    versions on the CPU, which draw the same maps (relative L2 <= 1e-4);
 7. the flash-attention kernel (K5) against its plain version on the card,
-   on a grid (rep 1/2; window 0/64/1024; q_offset 0/384 with Sq < Sk;
-   d_head 64/128/256; ragged Sq, Sk; float32 within 2e-5, or 3e-5 / 1e-4
-   with a window or an offset, bfloat16 within 2e-2), and at the serve shape
-   (q (32, 2048, 256), k/v (16, 2048, 256), window 1024 and 0) in bf16 and,
-   on the same inputs, in float32 at the grid's float32 tolerances;
+   both routes (bf16: the tensor-core kernel; float32: the CUDA-core one),
+   on a grid (rep 1/2; window 0/8/64/1024; q_offset 0/384 with Sq < Sk;
+   d_head 64/128/256; Sq 1/100/128/129/200 against 128-row q tiles, ragged
+   Sk; float32 within 2e-5, or 3e-5 / 1e-4 with a window or an offset,
+   bfloat16 within 2e-2), and at the serve shape (q (32, 2048, 256), k/v
+   (16, 2048, 256), window 1024 and 0) in bf16 and, on the same inputs, in
+   float32 at the grid's float32 tolerances;
 8. the serving path at full width: gemma3-4b (3,879,907,840 parameters,
    random from a fixed seed, float32 on the card, bf16 compute) with
    ``attn_impl="flash"`` serves 4 prompts of 2048 tokens and decodes 32
    greedy tokens through ``launch.serve.serve``. Launch counts are zeroed
-   just before and read just after: K5 must have launched 34 times, once per
-   attention layer of the prefill. The prefill is re-run through the plain
-   versions on the card (last-position logits within relative L2 5e-2 in
-   bf16), and both once more in float32 (within 1e-4); one more prefill is
-   profiled (device time by kernel, K5's share, idle share);
+   just before and read just after: the bf16 route of K5 (the tensor-core
+   kernel) must have launched 34 times, once per attention layer of the
+   prefill, and the float32 route never. The prefill is re-run through the
+   plain versions on the card (last-position logits within relative L2 5e-2
+   in bf16). Then ``serve`` runs once more in float32 (2 tokens), counts
+   zeroed around it: the float32 route must have launched 34 times, and its
+   logits must be within 1e-4 of the plain path's. One more bf16 prefill is
+   profiled (device time by kernel, K5's share, idle share; every K5 launch
+   in it must be the tensor-core kernel);
 9. tiny gemma (float32) through the kernel on the card and the plain
    versions on the CPU, with the same weights: logits within relative L2
    1e-4 and equal greedy tokens over 8 decode steps;
 10. time each kernel at its main path's shapes (CUDA events, median of 10),
    beside its plain version, its bound and a one-call PyTorch equivalent (a
    dense float32 matmul or einsum for K1-K4, scaled_dot_product_attention
-   with K/V repeated for K5, each checked against the kernel); print them
-   as one JSON line.
+   with K/V repeated for K5, each checked against the kernel); K5's two
+   routes both at the serve shape, each with its bound share and achieved
+   TFLOP/s; print them as one JSON line.
+
+The build phase prints ``-Xptxas -v``'s registers, shared memory and
+spills for K5's tensor-core kernel and fails if it spills.
 
 The last line is {"ok": true, "device": {...}}. Needs one card; exits 1
 without CUDA or outside a checkout of the repository.
@@ -58,6 +68,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -101,9 +112,14 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                         "src/repro/kernels/srht_fused.py:191"),
     "srht_gram_apply": ("src/repro_torch/kernels/csrc/srht_fused.cu",
                         "src/repro/kernels/srht_fused.py:240"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention.py:77"),
+    # K5's two routes, by dtype
+    "flash_attention_bf16": ("src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+                             "src/repro/kernels/flash_attention.py:77"),
+    "flash_attention_f32": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:77"),
 }
+FLASH_ROUTES = {torch.bfloat16: "flash_attention_bf16", torch.float32: "flash_attention_f32"}
+TC_KERNEL = "flash_attention_kernel_bf16_wgmma"  # K5's tensor-core kernel in a profile
 ESTIMATOR_KERNELS = ("fwht", "fwht_rowsigns", "srht_decode_sum", "srht_gram_apply")
 
 # the serving path: gemma3-4b at full width (src/repro/configs/gemma3_4b.py)
@@ -166,6 +182,14 @@ def phase_build() -> None:
     _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc, {len(_build.SOURCES)} sources in parallel)")
+    info = _build.ptxas_info("flash_attention_tc")
+    smem = {dhp: _build.build()["flash_attention_tc"].flash_attention_bf16_wgmma_smem(dhp)
+            for dhp in (64, 128, 256)}
+    log("ptxas, K5's tensor-core kernel (one entry per padded d_head):\n" + info.rstrip()
+        + f"\ndynamic shared memory a block, by padded d_head: {smem} bytes")
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
+    if "Used" not in info or not spills or any(int(a) or int(b) for a, b in spills):
+        fail(f"K5's tensor-core kernel: no register count, or spills, in ptxas's output {spills}")
 
 
 # -------------------------------------------------------------------- phase 3
@@ -407,17 +431,20 @@ def phase_main_path(tree: dict) -> dict:
     return dict(launches)
 
 
-def _device_ms_by_kernel(prof) -> dict:
-    by_name = {}
+def _device_ms_by_kernel(prof) -> tuple:
+    """(device ms by kernel name, launches by kernel name)."""
+    by_name, counts = {}, {}
     for ev in prof.key_averages():
         # device-side events only: the aten ops' own entries repeat their kernels' time
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
             by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
-    return by_name
+            counts[ev.key] = counts.get(ev.key, 0) + ev.count
+    return by_name, counts
 
 
 def _profiled(fn) -> tuple:
-    """(device ms by kernel, wall ms) of one synchronised call of ``fn``."""
+    """(device ms by kernel, wall ms, launches by kernel) of one
+    synchronised call of ``fn``."""
     act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=act) as prof:
@@ -425,13 +452,13 @@ def _profiled(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = _device_ms_by_kernel(prof)
+    by_name, counts = _device_ms_by_kernel(prof)
     device_ms = sum(by_name.values())
     if device_ms <= 0:
         fail("the profiler saw no device time")
     if device_ms > wall_ms:
         fail(f"the profile counts {device_ms} ms of device time in {wall_ms} ms of wall time")
-    return by_name, wall_ms
+    return by_name, wall_ms, counts
 
 
 def phase_profile(tree: dict) -> dict:
@@ -439,7 +466,7 @@ def phase_profile(tree: dict) -> dict:
     (torch.profiler) against the round's wall time."""
     from repro_torch.dist import collectives
 
-    by_name, wall_ms = _profiled(
+    by_name, wall_ms, _ = _profiled(
         lambda: collectives.compressed_mean_tree(_spec(True, "auto"), 5, tree, device=DEV))
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -507,15 +534,17 @@ def phase_flash_checks(errs: Errors) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for dh in (64, 128, 256):
             for rep in (1, 2):
-                for window in (0, 64, 1024):
-                    # (Sq, Sk, q_offset): ragged square, offset, ragged offset
-                    for sq, sk, q_offset in ((200, 200, 0), (128, 512, 384), (100, 484, 384)):
+                for window in (0, 8, 64, 1024):
+                    # (Sq, Sk, q_offset): ragged square, offset, ragged offset, one row
+                    # past a 128-row q tile, one query row; q_offset + Sq <= Sk throughout
+                    for sq, sk, q_offset in ((200, 200, 0), (128, 512, 384), (100, 484, 384),
+                                             (129, 129, 0), (1, 385, 384)):
                         q, k, v = _qkv(g, 2, rep, sq, sk, dh, dtype)
                         kw = dict(rep=rep, window=window, q_offset=q_offset)
                         atol, rtol = _flash_tol(dtype, window, q_offset)
                         got = ops.flash_attention(q, k, v, use_kernel="force", **kw)
                         want = ops.flash_attention(q, k, v, use_kernel="never", **kw)
-                        errs.check("flash_attention", got, want, exact=False, rtol=rtol,
+                        errs.check(FLASH_ROUTES[dtype], got, want, exact=False, rtol=rtol,
                                    atol=atol, what=f"{dtype} dh={dh} rep={rep} window={window} "
                                                    f"Sq={sq} Sk={sk} q_offset={q_offset}")
                         err = float((got.float() - want.float()).abs().max())
@@ -529,14 +558,14 @@ def phase_flash_checks(errs: Errors) -> dict:
             atol, rtol = _flash_tol(dtype, window, 0)
             got = ops.flash_attention(q, k, v, rep=2, window=window, use_kernel="force")
             want = ops.flash_attention(q, k, v, rep=2, window=window, use_kernel="never")
-            errs.check("flash_attention", got, want, exact=False, rtol=rtol, atol=atol,
+            errs.check(FLASH_ROUTES[dtype], got, want, exact=False, rtol=rtol, atol=atol,
                        what=f"serve shape {dtype} window={window}")
             key = f"serve {dtype}"
             by_dtype[key] = max(by_dtype.get(key, 0.0), float((got.float() - want.float()).abs().max()))
             del got, want
     torch.cuda.synchronize()
     log(f"flash attention vs plain: {n} grid cells and the serve shape (bf16 and f32, window "
-        f"1024 and 0) ok; max abs err by dtype {by_dtype}, overall {errs.max['flash_attention']}")
+        f"1024 and 0) ok; max abs err by dtype {by_dtype}")
     return {"q": serve_in[0], "k": serve_in[1], "v": serve_in[2]}
 
 
@@ -592,8 +621,9 @@ def phase_serve() -> dict:
                       seed=SERVE_SEED, device=DEV)
     torch.cuda.synchronize()
     launches = ops.launch_counts()  # ... and closes here
-    if launches != {"flash_attention": cfg.n_layers}:
-        fail(f"the serving path launched {launches}, not flash_attention x {cfg.n_layers}")
+    if launches != {"flash_attention_bf16": cfg.n_layers}:
+        fail(f"the serving path launched {launches}, not K5's tensor-core kernel "
+             f"(flash_attention_bf16) x {cfg.n_layers}")
     tokens, logits = res["tokens"], res["prefill_logits"][:, -1]
     if tokens.shape != (SERVE_BATCH, SERVE_GEN) or not torch.isfinite(logits).all():
         fail(f"serve gave tokens {tuple(tokens.shape)}, finite logits {bool(torch.isfinite(logits).all())}")
@@ -604,12 +634,24 @@ def phase_serve() -> dict:
     plain_tok, plain = _greedy(params, cfg, prompts, 0, "never")
     gap_bf16 = rel_l2(logits, plain[0])
     first_same = bool(torch.equal(tokens[:, :1], plain_tok))
+    del plain
+
+    # serving in float32: the float32 route of K5, counted the same way
     cfg32 = cfg.replace(dtype="float32")
-    k32_tok, k32 = _greedy(params, cfg32, prompts, 0)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()  # the float32 serving path's window opens here
+    res32 = serve.serve(cfg32, params, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=2,
+                        seed=SERVE_SEED, device=DEV)
+    torch.cuda.synchronize()
+    launches_f32 = ops.launch_counts()  # ... and closes here
+    if launches_f32 != {"flash_attention_f32": cfg.n_layers}:
+        fail(f"float32 serving launched {launches_f32}, not K5's float32 kernel x {cfg.n_layers}")
+    if not torch.equal(res32["prompts"], prompts):
+        fail("float32 serving drew other prompts from the same seed")
     p32_tok, p32 = _greedy(params, cfg32, prompts, 0, "never")
-    gap_f32 = rel_l2(k32, p32)
-    first_same32 = bool(torch.equal(k32_tok, p32_tok))
-    del plain, k32, p32
+    gap_f32 = rel_l2(res32["prefill_logits"][:, -1], p32[0])
+    first_same32 = bool(torch.equal(res32["tokens"][:, :1], p32_tok))
+    del res32, p32
 
     # warm prefill wall time, host clock around a synchronised call
     walls = []
@@ -620,7 +662,7 @@ def phase_serve() -> dict:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     out = {
-        "launches": launches,
+        "launches": launches, "launches_f32_serving": launches_f32,
         "tokens_request0": tokens[0].tolist(),
         "prefill_ms_first": res["prefill_s"] * 1e3,
         "prefill_ms_warm_median3": statistics.median(walls),
@@ -631,10 +673,12 @@ def phase_serve() -> dict:
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     log("serve " + json.dumps(out))
-    if not gap_bf16 <= 5e-2:
-        fail(f"bf16 prefill: kernel and plain logits differ by {gap_bf16} (limit 5e-2)")
-    if not gap_f32 <= 1e-4:
-        fail(f"float32 prefill: kernel and plain logits differ by {gap_f32} (limit 1e-4)")
+    if not gap_bf16 <= 5e-2 or not first_same:
+        fail(f"bf16 prefill: kernel and plain logits differ by {gap_bf16} (limit 5e-2), "
+             f"first tokens equal: {first_same}")
+    if not gap_f32 <= 1e-4 or not first_same32:
+        fail(f"float32 prefill: kernel and plain logits differ by {gap_f32} (limit 1e-4), "
+             f"first tokens equal: {first_same32}")
     out["profile"] = phase_serve_profile(params, cfg, prompts)
     return out
 
@@ -647,20 +691,25 @@ def phase_serve_profile(params, cfg, prompts) -> dict:
 
     cache = transformer.init_cache(cfg, prompts.shape[0], prompts.shape[1] + SERVE_GEN,
                                    device=prompts.device)
-    by_name, wall_ms = _profiled(lambda: transformer.prefill(params, cfg, cache, prompts))
+    by_name, wall_ms, counts = _profiled(lambda: transformer.prefill(params, cfg, cache, prompts))
     device_ms = sum(by_name.values())
-    k5_ms = sum(ms for name, ms in by_name.items() if "flash_attention_kernel" in name)
-    if k5_ms <= 0:
-        fail("the profiled prefill shows no flash-attention kernel")
+    k5 = {name: ms for name, ms in by_name.items() if "flash_attention_kernel" in name}
+    k5_ms = sum(k5.values())
+    k5_launches = sum(counts[name] for name in k5)
+    k5_tc_launches = sum(counts[name] for name in k5 if TC_KERNEL in name)
+    if k5_ms <= 0 or k5_tc_launches != k5_launches or k5_launches != cfg.n_layers:
+        fail(f"the profiled prefill ran K5 as {dict((n[:120], counts[n]) for n in k5)}, not the "
+             f"tensor-core kernel x {cfg.n_layers}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {"wall_ms": wall_ms, "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
            "k5_ms": k5_ms, "k5_share_of_device": k5_ms / device_ms,
+           "k5_launches": k5_launches, "k5_tensor_core_launches": k5_tc_launches,
            "top_device_ms": [[name[:200], ms] for name, ms in top]}
     log("serve profile, prefill " + json.dumps(out))
     tok = torch.zeros((prompts.shape[0], 1), dtype=torch.int32, device=prompts.device)
     pos = torch.full_like(tok, prompts.shape[1])
     decode = make_decode_step(cfg)
-    by_name, wall_ms = _profiled(lambda: decode(params, cache, tok, pos))
+    by_name, wall_ms, _ = _profiled(lambda: decode(params, cache, tok, pos))
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     out["decode_step"] = {"wall_ms": wall_ms, "device_ms": device_ms,
@@ -684,10 +733,10 @@ def phase_tiny_gemma() -> None:
     prompts = torch.randint(0, cfg.vocab_size, (3, 40), generator=torch.Generator().manual_seed(4),
                             dtype=torch.int32)
     card = _move(params, DEV)
-    before = ops.launch_counts().get("flash_attention", 0)
+    before = ops.launch_counts().get("flash_attention_f32", 0)
     got_tok, got = _greedy(card, cfg, prompts.to(DEV), 8)
-    if ops.launch_counts().get("flash_attention", 0) - before != cfg.n_layers:
-        fail("tiny gemma's prefill on the card did not run the flash-attention kernel")
+    if ops.launch_counts().get("flash_attention_f32", 0) - before != cfg.n_layers:
+        fail("tiny gemma's float32 prefill on the card did not run K5's float32 kernel")
     want_tok, want = _greedy(params, cfg, prompts, 8)
     gap = rel_l2(got.cpu(), want)
     if not gap <= 1e-4 or not torch.equal(got_tok.cpu(), want_tok):
@@ -770,59 +819,69 @@ def _flash_pairs(sq: int, sk: int, window: int) -> int:
     return total
 
 
-def phase_flash_timing(inp: dict, launches: int, errs: Errors) -> dict:
-    """K5 at the serve shape, windowed and global: kernel, plain version,
-    bound, and scaled_dot_product_attention on K/V repeated beforehand.
-    The entry's figures are per launch, weighted as the prefill runs them
-    (29 windowed, 5 global)."""
+def phase_flash_timing(inp: dict, launches: dict, errs: Errors) -> list:
+    """K5's two routes at the serve shape, windowed and global: kernel,
+    plain version, bound, and scaled_dot_product_attention on K/V repeated
+    beforehand. bf16 runs the tensor-core kernel, float32 (the same inputs)
+    the CUDA-core one. Each entry's figures are per launch, weighted as the
+    prefill runs them (29 windowed, 5 global); ``launches`` is each route's
+    count from its serving run."""
     from repro_torch.kernels import ops
 
-    q, k, v = inp["q"], inp["k"], inp["v"]
-    n_q, sq, dh = q.shape
-    rep = n_q // k.shape[0]
-    # (1, heads, S, dh), K/V repeated to every query head, outside the timing
-    q4 = q[None]
-    k_rep = torch.repeat_interleave(k, rep, 0)[None]
-    v_rep = torch.repeat_interleave(v, rep, 0)[None]
-    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v)) + q.numel() * q.element_size()
-    idx = torch.arange(sq, device=DEV)
-    per_window = {}
-    for window in SERVE_WINDOWS:
-        call = lambda u, w=window: ops.flash_attention(q, k, v, rep=rep, window=w, use_kernel=u)
-        if window:
-            mask = (idx[None, :] <= idx[:, None]) & (idx[:, None] - idx[None, :] < window)
-            lib = lambda m=mask: torch.nn.functional.scaled_dot_product_attention(
-                q4, k_rep, v_rep, attn_mask=m)
-        else:
-            lib = lambda: torch.nn.functional.scaled_dot_product_attention(
-                q4, k_rep, v_rep, is_causal=True)
-        gap = rel_l2(lib()[0].float(), call("force").float())
-        if not gap <= 2e-2:
-            fail(f"flash_attention window={window}: the library yardstick differs by {gap}")
-        n_ops = 4 * dh * n_q * _flash_pairs(sq, sq, window)
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops / BF16_OPS_PER_S * 1e3
-        per_window[window] = {
-            "ms": time_ms(lambda: call("force")),
-            "plain_ms": time_ms(lambda: call("never"), reps=3, warmup=1),
-            "library_ms": time_ms(lib),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "gflop": n_ops / 1e9, "mbytes": n_bytes / 1e6, "library_rel_gap": gap,
-        }
-        log(f"flash_attention window={window}: " + json.dumps(per_window[window]))
-    weights = SERVE_WINDOWS
-    total = sum(weights.values())
-    mean = {key: sum(per_window[w][key] * c for w, c in weights.items()) / total
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    bound_by = {per_window[w]["bound_by"] for w in weights}
-    return {
-        "name": "flash_attention", "route": "cuda", "source": KERNELS["flash_attention"][0],
-        "replaces": KERNELS["flash_attention"][1], "launches": launches,
-        "max_abs_err": errs.max["flash_attention"], **mean,
-        "bound_by": bound_by.pop() if len(bound_by) == 1 else "operations",
-        "per_window": {str(w): per_window[w] for w in weights},
-    }
+    out = []
+    for dtype, peak, lib_tol in ((torch.bfloat16, BF16_OPS_PER_S, 2e-2),
+                                 (torch.float32, F32_OPS_PER_S, 1e-4)):
+        name = FLASH_ROUTES[dtype]
+        q, k, v = (inp[key].to(dtype) for key in ("q", "k", "v"))
+        n_q, sq, dh = q.shape
+        rep = n_q // k.shape[0]
+        # (1, heads, S, dh), K/V repeated to every query head, outside the timing
+        q4 = q[None]
+        k_rep = torch.repeat_interleave(k, rep, 0)[None]
+        v_rep = torch.repeat_interleave(v, rep, 0)[None]
+        n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))  # q, k, v in; o out
+        idx = torch.arange(sq, device=DEV)
+        per_window = {}
+        for window in SERVE_WINDOWS:
+            call = lambda u, w=window: ops.flash_attention(q, k, v, rep=rep, window=w, use_kernel=u)
+            if window:
+                mask = (idx[None, :] <= idx[:, None]) & (idx[:, None] - idx[None, :] < window)
+                lib = lambda m=mask: torch.nn.functional.scaled_dot_product_attention(
+                    q4, k_rep, v_rep, attn_mask=m)
+            else:
+                lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q4, k_rep, v_rep, is_causal=True)
+            gap = rel_l2(lib()[0].float(), call("force").float())
+            if not gap <= lib_tol:
+                fail(f"{name} window={window}: the library yardstick differs by {gap}")
+            n_ops = 4 * dh * n_q * _flash_pairs(sq, sq, window)
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = n_ops / peak * 1e3
+            ms = time_ms(lambda: call("force"))
+            per_window[window] = {
+                "ms": ms,
+                "plain_ms": time_ms(lambda: call("never"), reps=3, warmup=1),
+                "library_ms": time_ms(lib),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_share": max(t_bytes, t_ops) / ms, "tflops": n_ops / ms / 1e9,
+                "gflop": n_ops / 1e9, "mbytes": n_bytes / 1e6, "library_rel_gap": gap,
+            }
+            log(f"{name} window={window}: " + json.dumps(per_window[window]))
+        del q, k, v, q4, k_rep, v_rep
+        weights = SERVE_WINDOWS
+        total = sum(weights.values())
+        mean = {key: sum(per_window[w][key] * c for w, c in weights.items()) / total
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "tflops")}
+        bound_by = {per_window[w]["bound_by"] for w in weights}
+        out.append({
+            "name": name, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1], "launches": int(launches.get(name, 0)),
+            "max_abs_err": errs.max[name], **mean, "bound_share": mean["bound_ms"] / mean["ms"],
+            "bound_by": bound_by.pop() if len(bound_by) == 1 else "operations",
+            "per_window": {str(w): per_window[w] for w in weights},
+        })
+    return out
 
 
 def main() -> int:
@@ -851,7 +910,8 @@ def main() -> int:
     serve_out = phase_serve()
     phase_tiny_gemma()
     kernels = phase_timing(calls, launches, errs, inputs)
-    kernels.append(phase_flash_timing(flash_inputs, serve_out["launches"]["flash_attention"], errs))
+    kernels += phase_flash_timing(
+        flash_inputs, {**serve_out["launches"], **serve_out["launches_f32_serving"]}, errs)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -5,8 +5,10 @@ Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface
 by ``nvcc`` for ``sm_90a``. All sources are compiled at once, one ``nvcc``
 process each, into ``.cache/torch_ext/<hash>/`` at the checkout root (or
 ``$REPRO_TORCH_EXT_DIR``), where the hash covers the sources and the flags, so
-an edit rebuilds and an unchanged tree reuses the libraries. Nothing here
-runs at import time: the CPU path never reaches this module's build.
+an edit rebuilds and an unchanged tree reuses the libraries. ``nvcc``'s output
+(``-Xptxas -v``: each kernel's registers, shared memory and spills) is kept
+beside each library as ``lib<name>.log``; ``ptxas_info`` reads it. Nothing
+here runs at import time: the CPU path never reaches this module's build.
 """
 from __future__ import annotations
 
@@ -18,10 +20,10 @@ import subprocess
 import threading
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("fwht", "srht_fused", "flash_attention")
+SOURCES = ("fwht", "srht_fused", "flash_attention", "flash_attention_tc")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-lineinfo", "-Xptxas", "-v",
 )
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -38,7 +40,10 @@ SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-        "flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    },
+    "flash_attention_tc": {
+        "flash_attention_bf16_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+        "flash_attention_bf16_wgmma_smem": (_I,),  # -> bytes, not an error code
     },
 }
 
@@ -67,6 +72,10 @@ def _cache_root() -> str:
     return os.path.join(_CSRC, "..", "..", "..", "..", ".cache", "torch_ext")
 
 
+def _out_dir() -> str:
+    return os.path.abspath(os.path.join(_cache_root(), _source_hash()))
+
+
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in sorted(os.listdir(_CSRC)):
@@ -84,7 +93,7 @@ def build() -> dict[str, ctypes.CDLL]:
     with _LOCK:
         if len(_LIBS) == len(SOURCES):
             return _LIBS
-        out_dir = os.path.abspath(os.path.join(_cache_root(), _source_hash()))
+        out_dir = _out_dir()
         os.makedirs(out_dir, exist_ok=True)
         procs = {}
         for name in SOURCES:
@@ -101,6 +110,8 @@ def build() -> dict[str, ctypes.CDLL]:
             if proc.returncode != 0:
                 failures.append(f"--- nvcc {name}.cu (exit {proc.returncode}) ---\n{log}")
             else:
+                with open(os.path.join(out_dir, f"lib{name}.log"), "w") as f:
+                    f.write(log)
                 os.replace(tmp, so)
         if failures:
             raise RuntimeError("building the repro_torch CUDA kernels failed:\n"
@@ -114,6 +125,14 @@ def build() -> dict[str, ctypes.CDLL]:
             lib.error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
         return _LIBS
+
+
+def ptxas_info(source: str) -> str:
+    """``-Xptxas -v``'s lines for ``source``'s kernels from the last build:
+    registers, shared memory, stack and spills of each entry function."""
+    build()
+    with open(os.path.join(_out_dir(), f"lib{source}.log")) as f:
+        return "".join(line for line in f if "ptxas" in line or "spill" in line)
 
 
 def launch(source: str, fn: str, *args) -> None:

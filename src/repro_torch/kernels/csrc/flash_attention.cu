@@ -1,19 +1,22 @@
 // Hopper port of src/repro/kernels/flash_attention.py::flash_attention_pallas
-// (its body `_kernel`): causal GQA attention with an online softmax,
+// (its body `_kernel`) for float32: causal GQA attention with an online
+// softmax,
 //
 //     o[n, i] = softmax_j(mask(i, j) ? (scale * q[n, i]) . k[n / rep, j] : -1e9) @ v[n / rep]
 //
 // with query i at absolute position q_offset + i, key j allowed when
-// j <= q_offset + i (and q_offset + i - j < window when window > 0). f32 or
-// bf16 in, f32 arithmetic throughout, output in the input dtype. As in the
-// Pallas body, q is scaled by 1/sqrt(dh) BEFORE the product, masked scores
-// are -1e9, p = mask ? exp(s - m) : 0, and the output is acc / max(l, 1e-30).
+// j <= q_offset + i (and q_offset + i - j < window when window > 0). float32
+// in and out, float32 arithmetic throughout. As in the Pallas body, q is
+// scaled by 1/sqrt(dh) BEFORE the product, masked scores are -1e9,
+// p = mask ? exp(s - m) : 0, and the output is acc / max(l, 1e-30). bf16
+// inputs take the tensor-core kernel of flash_attention_tc.cu instead: on
+// the tensor cores float32 would run as TF32, which the float32 tolerances
+// (2e-5) do not allow.
 //
-// Bound on an H100 at the serve shape (gemma3-4b prefill, q (32, 2048, 256),
-// k/v (16, 2048, 256), bf16): operations. One launch moves about 100.7 MB
-// (30 us at 3.35 TB/s) but does 51.5 GFLOP with a 1024 window or 68.7 GFLOP
-// causal: 52 / 69 us at the tensor cores' 989 TFLOP/s, and 0.77 / 1.03 ms at
-// the 67 TFLOP/s of float32 outside them, which is this kernel's own floor.
+// Bound on an H100 at the serve shape in float32 (q (32, 2048, 256), k/v
+// (16, 2048, 256)): operations. One launch moves about 201 MB (60 us at
+// 3.35 TB/s) and does 51.6 GFLOP with a 1024 window or 68.8 GFLOP causal:
+// 0.77 / 1.03 ms at the 67 TFLOP/s of float32 outside the tensor cores.
 //
 // Design. The TPU grid walks (head, q tile, kv tile) in order and carries m,
 // l and the accumulator in VMEM from one kv step to the next. Blocks on
@@ -28,8 +31,7 @@
 // K and V share one buffer (K for QK^T, then V for PV), which keeps the
 // footprint at 147 KB for dh = 256. Products are float32 FMAs on the CUDA
 // cores, written as explicit fmaf calls (the sources build with -fmad=false,
-// which only stops the compiler contracting a separate multiply and add); a
-// tensor-core (wgmma) form that rounds P to bf16 is later work.
+// which only stops the compiler contracting a separate multiply and add).
 // Blocks take the q tiles longest first, so the causal tail fills the card.
 #include "fwht_common.cuh"
 
@@ -43,29 +45,14 @@ constexpr float kNeg = -1e9f;
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
 
 // Rows [row0, row0 + tile_rows) of a (rows, dh) matrix into shared memory
-// (row stride ld floats), as float32 times `scale`; rows past `rows` and
-// columns past dh (up to the padded width dhp) are zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, int rows, int dh,
+// (row stride ld floats), times `scale`; rows past `rows` and columns past
+// dh (up to the padded width dhp) are zero.
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int rows, int dh,
                                           int dhp, int ld, float scale, int tile_rows) {
   const int chunks = dhp / 4;
   for (int idx = threadIdx.x; idx < tile_rows * chunks; idx += blockDim.x) {
@@ -86,10 +73,10 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, in
 // One block per (q row group n, q tile). Thread t owns rows 4 * (t / 16) + i,
 // i < 4, of the tile: score columns t % 16 + 16 j (j < 4) and output columns
 // 4 * (t % 16) + 64 c + {0..3} (c < DHP / 64).
-template <typename T, int DHP>
+template <int DHP>
 __global__ void __launch_bounds__(kFaThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int sq, int sk, int dh,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o, int sq, int sk, int dh,
                        int rep, int window, int q_offset, float scale) {
   constexpr int LD = DHP + 4;    // row stride of the q and k/v tiles
   constexpr int LDP = kBKV + 4;  // row stride of the p tile
@@ -104,9 +91,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * kBQ;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
-  const T* qn = q + static_cast<size_t>(n) * sq * dh;
-  const T* kn = k + static_cast<size_t>(n / rep) * sk * dh;
-  const T* vn = v + static_cast<size_t>(n / rep) * sk * dh;
+  const float* qn = q + static_cast<size_t>(n) * sq * dh;
+  const float* kn = k + static_cast<size_t>(n / rep) * sk * dh;
+  const float* vn = v + static_cast<size_t>(n / rep) * sk * dh;
 
   load_tile(s_q, qn, q0, sq, dh, DHP, LD, scale, kBQ);
 
@@ -224,7 +211,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + (static_cast<size_t>(n) * sq + row) * dh;
+    float* orow = o + (static_cast<size_t>(n) * sq + row) * dh;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = tx * 4 + 64 * c;
@@ -236,21 +223,20 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DHP>
+template <int DHP>
 int launch_flash_dhp(const void* q, const void* k, const void* v, void* o, int n_q, int sq,
                      int sk, int dh, int rep, int window, int q_offset, float scale,
                      void* stream) {
   const size_t smem = sizeof(float) * ((kBQ + kBKV) * (DHP + 4) + kBQ * (kBKV + 4));
-  cudaError_t err = prepare_smem(flash_attention_kernel<T, DHP>, smem);
+  cudaError_t err = prepare_smem(flash_attention_kernel<DHP>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kBQ - 1) / kBQ, n_q);
-  flash_attention_kernel<T, DHP><<<grid, kFaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, dh, rep, window, q_offset, scale);
+  flash_attention_kernel<DHP><<<grid, kFaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), sq, sk, dh, rep, window, q_offset, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
 int launch_flash(const void* q, const void* k, const void* v, void* o, int n_q, int sq, int sk,
                  int dh, int rep, int window, int q_offset, float scale, void* stream) {
   if (dh < 8 || dh > 256 || dh % 8 != 0 || rep < 1 || n_q % rep != 0 || n_q > 65535 || sk < 1 ||
@@ -259,14 +245,14 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int n_q, 
   }
   if (n_q == 0 || sq == 0) return cudaSuccess;
   if (dh <= 64) {
-    return launch_flash_dhp<T, 64>(q, k, v, o, n_q, sq, sk, dh, rep, window, q_offset, scale,
+    return launch_flash_dhp<64>(q, k, v, o, n_q, sq, sk, dh, rep, window, q_offset, scale,
                                    stream);
   }
   if (dh <= 128) {
-    return launch_flash_dhp<T, 128>(q, k, v, o, n_q, sq, sk, dh, rep, window, q_offset, scale,
+    return launch_flash_dhp<128>(q, k, v, o, n_q, sq, sk, dh, rep, window, q_offset, scale,
                                     stream);
   }
-  return launch_flash_dhp<T, 256>(q, k, v, o, n_q, sq, sk, dh, rep, window, q_offset, scale,
+  return launch_flash_dhp<256>(q, k, v, o, n_q, sq, sk, dh, rep, window, q_offset, scale,
                                   stream);
 }
 
@@ -279,15 +265,8 @@ const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaEr
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int n_q, int sq,
                         int sk, int dh, int rep, int window, int q_offset, float scale,
                         void* stream) {
-  return repro_torch::launch_flash<float>(q, k, v, o, n_q, sq, sk, dh, rep, window, q_offset,
-                                          scale, stream);
-}
-
-int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int n_q, int sq,
-                         int sk, int dh, int rep, int window, int q_offset, float scale,
-                         void* stream) {
-  return repro_torch::launch_flash<__nv_bfloat16>(q, k, v, o, n_q, sq, sk, dh, rep, window,
-                                                  q_offset, scale, stream);
+  return repro_torch::launch_flash(q, k, v, o, n_q, sq, sk, dh, rep, window, q_offset, scale,
+                                    stream);
 }
 
 }  // extern "C"

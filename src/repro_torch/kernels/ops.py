@@ -13,7 +13,9 @@ On a CUDA tensor there is no fallback: a build or launch failure raises.
 ``fwht``, ``srht_encode`` and ``srht_decode`` run the FWHT kernel
 (csrc/fwht.cu); ``srht_encode_batch``, ``srht_decode_sum`` and
 ``srht_gram_apply`` the fused kernels (csrc/srht_fused.cu);
-``flash_attention`` the flash-attention kernel (csrc/flash_attention.cu).
+``flash_attention`` a flash-attention kernel chosen by dtype: bf16 the
+tensor-core kernel (csrc/flash_attention_tc.cu), float32 the CUDA-core one
+(csrc/flash_attention.cu).
 """
 from __future__ import annotations
 
@@ -158,8 +160,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, rep: i
                     window: int = 0, q_offset: int = 0, use_kernel: str = "auto") -> torch.Tensor:
     """Causal GQA flash attention; q (N_q, Sq, dh), k/v (N_kv, Sk, dh), kv
     head = q head // rep, optional sliding ``window``, queries at positions
-    ``q_offset + i``. -> (N_q, Sq, dh) in q's dtype. The CUDA kernel picks
-    its own tiles, so the Pallas wrapper's q_tile / kv_tile are not taken."""
+    ``q_offset + i``. -> (N_q, Sq, dh) in q's dtype.
+
+    On CUDA tensors the route follows the dtype: bf16 runs the tensor-core
+    kernel (P rounded to bf16 for the P V product), float32 the CUDA-core
+    kernel (float32 throughout), and there is no fallback between them or
+    to the plain version; any other dtype raises. The kernels pick their own
+    tiles, so the Pallas wrapper's q_tile / kv_tile are not taken."""
     if _use_kernel(q, use_kernel):
         return _flash.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                                            rep=rep, window=window, q_offset=q_offset)

@@ -6,8 +6,13 @@ interpret mode (q and kv tiles of 32) and against ``repro.kernels.ref``'s
 oracle, on the same numpy inputs: rep 1 and 2, window 0 and 8, a q_offset
 with Sq < Sk, float32 within 2e-5 (3e-5 / 1e-4 with a window or an offset,
 the JAX package's own tolerances for its kernel) and bfloat16 within 2e-2.
-The CUDA kernel itself runs only on the card: the last test holds it against
-the plain version there and skips elsewhere.
+
+The bf16 route's CUDA kernel (csrc/flash_attention_tc.cu) rounds P to bf16
+for its P V product on the tensor cores. ``_tensor_core_emulation`` repeats
+that arithmetic in torch on the CPU; it is held against the Pallas kernel
+and the plain version at the same 2e-2, which puts the design's bf16 error
+on record here. The CUDA kernels themselves run only on the card: the last
+test holds both routes against the plain version there and skips elsewhere.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 
 F32, BF16 = "float32", "bfloat16"
 # name: (n_kv, rep, sq, sk, dh, window, q_offset, dtype)
@@ -122,9 +128,83 @@ def test_plain_version_matches_oracle(name):
     np.testing.assert_allclose(_port(name, case), _jax_side()[1][name][1], atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("bad", ["d_head", "d_head_big", "rep", "dtype", "kv_shape"])
-def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(bad):
-    q, k, v = torch.zeros(4, 8, 16), torch.zeros(2, 8, 16), torch.zeros(2, 8, 16)
+def _tensor_core_emulation(q, k, v, *, rep, window=0, q_offset=0):
+    """The bf16 kernel's arithmetic (csrc/flash_attention_tc.cu) in torch:
+    S = Q K^T in float32 from bf16 inputs, the scale 1/sqrt(dh) and log2(e)
+    applied after the product (both rounded to float32 as the launcher
+    does), exp2, kv tiles of the kernel's width (64 keys at d_head > 128,
+    else 128), P rounded to bf16 for the P V product and l summing those
+    rounded values, the output acc / max(l, 1e-30) rounded to bf16."""
+    n_q, sq, dh = q.shape
+    bkv = 64 if dh > 128 else 128
+    qf = q.float()
+    kf = torch.repeat_interleave(k, rep, 0).float()
+    vf = torch.repeat_interleave(v, rep, 0).float()
+    scale_log2 = float(np.float32(np.float32(1.0 / np.sqrt(dh)) * np.float32(np.log2(np.e))))
+    pos = q_offset + torch.arange(sq)[:, None]
+    m = torch.full((n_q, sq, 1), -1e9)
+    l = torch.zeros((n_q, sq, 1))
+    acc = torch.zeros((n_q, sq, dh))
+    for k0 in range(0, kf.shape[1], bkv):
+        kt, vt = kf[:, k0:k0 + bkv], vf[:, k0:k0 + bkv]
+        key = k0 + torch.arange(kt.shape[1])[None, :]
+        ok = key <= pos
+        if window:
+            ok &= pos - key < window
+        t = torch.where(ok, torch.einsum("nqd,nkd->nqk", qf, kt) * scale_log2, -1e9)
+        m_new = torch.maximum(m, t.amax(-1, keepdim=True))
+        p = torch.where(ok, torch.exp2(t - m_new), 0.0).to(torch.bfloat16).float()
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.einsum("nqk,nkd->nqd", p, vt)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
+
+
+# against the plain version: (n_kv, rep, sq, sk, dh, window, q_offset, q scale)
+EMULATION_CASES = {
+    "ragged-window-dh256": (1, 2, 200, 200, 256, 64, 0, 1.0),  # 4 kv tiles of 64, Sq past 128
+    "ragged-offset-dh40": (2, 1, 100, 484, 40, 8, 384, 1.0),   # 4 kv tiles of 128, the last ragged
+    "peaked-logits": (1, 2, 130, 130, 128, 0, 0, 8.0),         # q x 8: near one-hot rows
+}
+
+
+@pytest.mark.parametrize("name", [n for n, c in CASES.items() if c[7] == BF16])
+def test_tensor_core_emulation_matches_pallas_kernel(name):
+    case = CASES[name]
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _jax_side()[0][name])
+    got = _tensor_core_emulation(q, k, v, rep=case[1], window=case[5], q_offset=case[6])
+    atol, rtol = _tol(case)
+    np.testing.assert_allclose(got.float().numpy(), _jax_side()[1][name][0], atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("name", list(EMULATION_CASES))
+def test_tensor_core_emulation_matches_plain_version(name):
+    n_kv, rep, sq, sk, dh, window, q_offset, q_scale = EMULATION_CASES[name]
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16()
+               for shape in ((n_kv * rep, sq, dh), (n_kv, sk, dh), (n_kv, sk, dh)))
+    q = q * q_scale  # a power of two: exact in bf16
+    kw = dict(rep=rep, window=window, q_offset=q_offset)
+    got = _tensor_core_emulation(q, k, v, **kw)
+    want = tref.flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+_REFUSED = ["d_head", "d_head_big", "rep", "dtype", "kv_shape", "float16", "misaligned",
+            "cpu_tensor"]
+
+
+@pytest.mark.parametrize(
+    "dtype,bad",
+    [pytest.param(torch.float32, bad, id=bad) for bad in _REFUSED]
+    + [pytest.param(torch.bfloat16, bad, id=f"bf16-{bad}") for bad in _REFUSED + ["q_tiles"]])
+def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(dtype, bad):
+    """Both routes (float32: the CUDA-core kernel; bf16: the tensor-core
+    one) raise before any launch; nothing falls back to the other route or
+    to the plain version."""
+    q, k, v = (torch.zeros(shape, dtype=dtype) for shape in ((4, 8, 16), (2, 8, 16), (2, 8, 16)))
     rep = 2
     if bad == "d_head":
         q, k, v = q[..., :12], k[..., :12], v[..., :12]
@@ -133,27 +213,47 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(bad):
     elif bad == "rep":
         rep = 3
     elif bad == "dtype":
-        k = k.bfloat16()
-    else:
+        k = k.bfloat16() if dtype == torch.float32 else k.float()
+    elif bad == "kv_shape":
         v = v[:, :4]
+    elif bad == "float16":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "misaligned":  # contiguous, but one element past a 16-byte boundary
+        q = torch.zeros(q.numel() + 1, dtype=dtype)[1:].view(q.shape)
+    elif bad == "q_tiles":  # more 128-row q tiles than the grid takes (never touched)
+        q = torch.empty((2, 128 * 65535 + 1, 8), dtype=dtype)
+        k, v = k[..., :8], v[..., :8]
+    # "cpu_tensor": all else valid, but the kernels run on the card only
     with pytest.raises(ValueError):
         tflash.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), rep=rep)
 
 
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
-    """The kernel against its plain version on the card: ragged lengths,
-    rep 1/2, a window, an offset, d_head 64 and 256, float32 and bfloat16."""
+    """Both routes against the plain version on the card: ragged lengths,
+    rep 1/2, windows (8, smaller than a kv tile; 64), offsets (384),
+    d_head 64/128/256, Sq 1, 129 and 200 against the bf16 kernel's 128-row
+    q tiles; float32 (the CUDA-core kernel) and bfloat16 (the tensor-core
+    kernel, counted as its own route)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     rng = np.random.default_rng(3)
     for n_kv, rep, sq, sk, dh, window, q_offset in [(2, 1, 100, 100, 64, 0, 0),
                                                      (2, 2, 130, 130, 256, 64, 0),
-                                                     (1, 2, 70, 454, 128, 0, 384)]:
+                                                     (1, 2, 70, 454, 128, 0, 384),
+                                                     (2, 1, 1, 385, 64, 8, 384),
+                                                     (2, 2, 129, 129, 128, 8, 0),
+                                                     (1, 2, 200, 200, 256, 8, 0),
+                                                     (2, 2, 129, 513, 256, 0, 384),
+                                                     (1, 2, 200, 584, 64, 8, 384),
+                                                     (1, 1, 1, 1, 128, 0, 0)]:
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
                        for s in ((n_kv * rep, sq, dh), (n_kv, sk, dh), (n_kv, sk, dh)))
             kw = dict(rep=rep, window=window, q_offset=q_offset)
+            route = tflash.ROUTES[dtype][0]
+            before = tops.launch_counts().get(route, 0)
             got = tops.flash_attention(q, k, v, use_kernel="force", **kw).float()
+            assert tops.launch_counts().get(route, 0) == before + 1
             want = tops.flash_attention(q, k, v, use_kernel="never", **kw).float()
             torch.testing.assert_close(got, want, atol=tol, rtol=tol)
