@@ -9,12 +9,13 @@ result):
 1. environment: torch, CUDA, the card, its power limit, nvcc;
 2. build the CUDA kernels from kernels/csrc at first use;
 3. hold each kernel against its plain PyTorch version on the card: bitwise
-   on the golden grid (small integers, +-1 signs, ragged chunk counts,
-   shared and per-chunk draws, bf16 input for the FWHT, the per-row-sign
-   FWHT with its signs before, after and on both sides of the transform;
-   the Gram apply above d = 512 within 1e-4 relative, as its double transform leaves the exact
-   range), and within rtol 1e-5 / atol 1e-5 on random float32 at the main
-   path's shapes;
+   on the golden grid (d = 2 to 16384, and 32768 for K1; small integers,
+   +-1 signs, ragged chunk counts, shared and per-chunk draws, bf16 input
+   for the FWHT, the per-row-sign FWHT with its signs before, after and on
+   both sides of the transform; the Gram apply above d = 512 within 1e-4
+   relative, as its double transform leaves the exact range), and on random
+   float32 at the main path's shapes: K1 (also in bf16) and K3 (shared and
+   per-chunk draws) bitwise, K2 and K4 within rtol 1e-5 / atol 1e-5;
 4. the main path at full width: ``compressed_mean_tree`` of
    ``RandProjSpatial(k=64, d_block=1024, transform="avg")`` over a gradient
    tree with mamba2-130m's 11 parameter leaves (129,100,224 values) for 4
@@ -24,7 +25,8 @@ result):
    re-run with the plain versions on the card (relative L2 gap <= 1e-3), and
    its error against the true mean must beat Rand-k's expected error;
 5. profile one more shared-randomness round (torch.profiler): device time
-   by kernel against the round's wall time;
+   by kernel against the round's wall time; every K1 and K3 launch in it
+   must be the register-resident butterfly kernel, by name;
 6. a small tree through the kernels on the card and through the plain
    versions on the CPU, which draw the same maps (relative L2 <= 1e-4);
 7. the flash-attention kernel (K5) against its plain version on the card,
@@ -59,7 +61,8 @@ result):
    TFLOP/s; print them as one JSON line.
 
 The build phase prints ``-Xptxas -v``'s registers, shared memory and
-spills for K5's tensor-core kernel and fails if it spills.
+spills for K5's tensor-core kernel and for K1's and K3's butterfly kernels
+(one entry a width and dtype) and fails if any of them spills.
 
 The last line is {"ok": true, "device": {...}}. Needs one card; exits 1
 without CUDA or outside a checkout of the repository.
@@ -120,6 +123,11 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
 }
 FLASH_ROUTES = {torch.bfloat16: "flash_attention_bf16", torch.float32: "flash_attention_f32"}
 TC_KERNEL = "flash_attention_kernel_bf16_wgmma"  # K5's tensor-core kernel in a profile
+# K1's and K3's register-resident butterfly kernels, by function name
+BUTTERFLY_KERNELS = {"fwht": ("fwht", "fwht_butterfly_kernel"),
+                     "srht_decode_sum": ("srht_fused", "decode_sum_butterfly_kernel")}
+GOLDEN_WIDTHS = (2, 8, 32, 64, 512, 1024, 2048, 4096, 16384)
+K1_ONLY_WIDTH = 32768  # K1 takes d up to 32768, the others up to 16384
 ESTIMATOR_KERNELS = ("fwht", "fwht_rowsigns", "srht_decode_sum", "srht_gram_apply")
 
 # the serving path: gemma3-4b at full width (src/repro/configs/gemma3_4b.py)
@@ -175,6 +183,25 @@ def phase_environment() -> str:
     return smi
 
 
+def _ptxas_entries(info: str, kernel: str) -> list:
+    """(mangled name, registers, spill store bytes, spill load bytes) of each
+    entry of ``kernel`` in ptxas's ``-v`` lines."""
+    out, name, spill = [], None, None
+    for line in info.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spill = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and kernel in name and spill is not None:
+            out.append((name, int(m.group(1)), *spill))
+    return out
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
 
@@ -190,6 +217,18 @@ def phase_build() -> None:
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
     if "Used" not in info or not spills or any(int(a) or int(b) for a, b in spills):
         fail(f"K5's tensor-core kernel: no register count, or spills, in ptxas's output {spills}")
+    # K1: 15 widths x 2 dtypes; K3: 14 widths
+    for name, n_entries in (("fwht", 30), ("srht_decode_sum", 14)):
+        source, kernel = BUTTERFLY_KERNELS[name]
+        info = _build.ptxas_info(source)
+        log(f"ptxas, {source}.cu:\n" + info.rstrip())
+        entries = _ptxas_entries(info, kernel)
+        log(f"{name} ({kernel}): registers by entry "
+            f"{[regs for _, regs, _, _ in entries]}, spill bytes "
+            f"{sum(st + ld for _, _, st, ld in entries)}")
+        if len(entries) != n_entries or any(st or ld for _, _, st, ld in entries):
+            fail(f"{kernel}: {len(entries)} entries of {n_entries} in ptxas's output, or spills: "
+                 f"{[(n[:80], st, ld) for n, _, st, ld in entries if st or ld]}")
 
 
 # -------------------------------------------------------------------- phase 3
@@ -238,7 +277,7 @@ def phase_kernel_checks(errs: Errors) -> None:
 
     g = torch.Generator(device=DEV).manual_seed(1234)
     n, n_golden = 3, 0
-    for d in (8, 64, 512, 1024, 4096):
+    for d in GOLDEN_WIDTHS:
         k = max(1, d // 4)
         for c in (1, 5, 9):
             for shared in (True, False):
@@ -257,6 +296,10 @@ def phase_kernel_checks(errs: Errors) -> None:
                     errs.check("fwht", ops.fwht(xd, scale=0.25, use_kernel="force"),
                                ops.fwht(xd, scale=0.25, use_kernel="never"),
                                exact=True, what=f"{tag} {dt} bare")
+                    # from the second row: at d = 2 not 16-byte aligned
+                    errs.check("fwht", ops.fwht(xd[1:], scale=0.25, use_kernel="force"),
+                               ops.fwht(xd[1:], scale=0.25, use_kernel="never"),
+                               exact=True, what=f"{tag} {dt} bare, from row 1")
                 # K2: per-row-draw encode, and the full-width transform with
                 # the signs before it, after it, or both
                 s_full = signs.expand(n, c, d)
@@ -288,8 +331,20 @@ def phase_kernel_checks(errs: Errors) -> None:
                            exact=d <= 512, rtol=1e-4, atol=1e-4 * float(want.abs().max()),
                            what=tag)
                 n_golden += 1
+    for c in (1, 5, 9):  # K1 alone at its widest
+        d = K1_ONLY_WIDTH
+        x = _ints(g, (c, d))
+        signs, rows = _signs(g, (d,)), _rows(g, (), d // 4, d)
+        for dt in (torch.float32, torch.bfloat16):
+            errs.check("fwht", ops.srht_encode(x.to(dt), signs, rows, use_kernel="force"),
+                       ops.srht_encode(x.to(dt), signs, rows, use_kernel="never"),
+                       exact=True, what=f"golden d={d} C={c} {dt}")
+            errs.check("fwht", ops.fwht(x.to(dt), scale=0.25, use_kernel="force"),
+                       ops.fwht(x.to(dt), scale=0.25, use_kernel="never"),
+                       exact=True, what=f"golden d={d} C={c} {dt} bare")
     torch.cuda.synchronize()
-    log(f"kernels vs plain, golden grid: {n_golden} cells x 4 kernels ok")
+    log(f"kernels vs plain, golden grid: {n_golden} cells x 4 kernels (d = "
+        f"{', '.join(map(str, GOLDEN_WIDTHS))}) and K1 at d = {K1_ONLY_WIDTH} ok")
 
 
 def full_width_inputs(seed: int = 7) -> dict:
@@ -302,12 +357,17 @@ def full_width_inputs(seed: int = 7) -> dict:
     shared = prand.srht_draw(prand.fold_in(key, torch.arange(N_CLIENTS, device=DEV))[:, None],
                              D_BLOCK, K)
     per_chunk = prand.srht_draw(prand.fold_in(key, torch.arange(c, device=DEV)), D_BLOCK, K)
+    # K3's inputs in a per-chunk round: a draw per (client, chunk)
+    client_keys = prand.fold_in(key, torch.arange(N_CLIENTS, device=DEV))[:, None]
+    decode_pc = prand.srht_draw(prand.fold_in(client_keys, torch.arange(c, device=DEV)),
+                                D_BLOCK, K)
     return {
         "C": c,
         "x": torch.randn((c, D_BLOCK), generator=g, device=DEV),
         "z": torch.randn((N_CLIENTS, c, K), generator=g, device=DEV),
         "signs": shared["signs"], "rows": shared["rows"], "mask": _mask(shared["rows"], D_BLOCK),
         "pc_signs": per_chunk["signs"], "pc_rows": per_chunk["rows"],
+        "decode_pc_signs": decode_pc["signs"], "decode_pc_rows": decode_pc["rows"],
     }
 
 
@@ -334,11 +394,27 @@ def kernel_calls(inp: dict) -> dict:
     }
 
 
-def phase_full_width_checks(errs: Errors, calls: dict) -> None:
+def phase_full_width_checks(errs: Errors, calls: dict, inp: dict) -> None:
+    """Every kernel at the main path's shapes on random float32: K1 and K3
+    bitwise (K1 also in bf16, K3 also with a draw per chunk), K2 and K4
+    within rtol 1e-5 / atol 1e-5."""
+    from repro_torch.kernels import ops
+
     for name, (call, _, _) in calls.items():
-        errs.check(name, call("force"), call("never"), exact=False, what="full-width random f32")
+        errs.check(name, call("force"), call("never"), exact=name in BUTTERFLY_KERNELS,
+                   what="full-width random f32")
+    xb = inp["x"].to(torch.bfloat16)
+    s1, r1 = inp["signs"][0, 0], inp["rows"][0, 0]
+    errs.check("fwht", ops.srht_encode(xb, s1, r1, use_kernel="force"),
+               ops.srht_encode(xb, s1, r1, use_kernel="never"), exact=True,
+               what="full-width random bf16")
+    del xb
+    z, s, r = inp["z"], inp["decode_pc_signs"], inp["decode_pc_rows"]
+    errs.check("srht_decode_sum", ops.srht_decode_sum(z, s, r, D_BLOCK, use_kernel="force"),
+               ops.srht_decode_sum(z, s, r, D_BLOCK, use_kernel="never"), exact=True,
+               what="full-width random f32, a draw per chunk")
     torch.cuda.synchronize()
-    log("kernels vs plain, random f32 at full width: ok")
+    log("kernels vs plain, random f32 at full width: ok (K1 in f32 and bf16 and K3 bitwise)")
 
 
 # -------------------------------------------------------------------- phase 4
@@ -463,15 +539,29 @@ def _profiled(fn) -> tuple:
 
 def phase_profile(tree: dict) -> dict:
     """Where one shared-randomness round's time goes: device time by kernel
-    (torch.profiler) against the round's wall time."""
+    (torch.profiler) against the round's wall time. Every K1 and K3 launch
+    the wrappers count in it must show in the profile as the butterfly
+    kernel, by name."""
     from repro_torch.dist import collectives
+    from repro_torch.kernels import ops
 
-    by_name, wall_ms, _ = _profiled(
+    before = ops.launch_counts()
+    by_name, wall_ms, counts = _profiled(
         lambda: collectives.compressed_mean_tree(_spec(True, "auto"), 5, tree, device=DEV))
+    after = ops.launch_counts()
+    butterfly = {}
+    for name, (_, kernel) in BUTTERFLY_KERNELS.items():
+        launched = after.get(name, 0) - before.get(name, 0)
+        named = {key: counts[key] for key in by_name if kernel in key}
+        if launched == 0 or sum(named.values()) != launched:
+            fail(f"the profiled round launched {name} {launched} times, the profile shows "
+                 f"{kernel} {named}")
+        butterfly[name] = {"launches": launched, "ms": sum(by_name[key] for key in named),
+                           "kernels": sorted(key[:120] for key in named)}
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {"wall_ms": wall_ms, "device_ms": device_ms,
-           "idle_share": 1.0 - device_ms / wall_ms,
+           "idle_share": 1.0 - device_ms / wall_ms, "butterfly": butterfly,
            "top_device_ms": [[name[:200], ms] for name, ms in top]}
     log("profile " + json.dumps(out))
     return out
@@ -804,8 +894,10 @@ def phase_timing(calls: dict, launches: dict, errs: Errors, inputs: dict) -> lis
             "max_abs_err": errs.max[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
+            "library_ms": library_ms, "bound_share": max(t_bytes, t_ops) / ms,
+            "over_library": ms / library_ms,
         })
+        log(f"{name}: {json.dumps(out[-1])}")
     return out
 
 
@@ -900,7 +992,7 @@ def main() -> int:
     phase_kernel_checks(errs)
     inputs = full_width_inputs()
     calls = kernel_calls(inputs)
-    phase_full_width_checks(errs, calls)
+    phase_full_width_checks(errs, calls, inputs)
     tree = gradient_tree()
     launches = phase_main_path(tree)
     phase_profile(tree)

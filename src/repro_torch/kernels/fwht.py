@@ -14,7 +14,7 @@ import torch
 from . import _build
 
 LAUNCHES: collections.Counter = collections.Counter()
-MAX_D = 1 << 15  # one float32 row in shared memory (128 KB)
+MAX_D = 1 << 15  # one row a block of 1024 threads, 32 floats a thread
 _DTYPES = {torch.float32: "fwht_f32", torch.bfloat16: "fwht_bf16"}
 
 
@@ -62,6 +62,8 @@ def fwht_cuda(x: torch.Tensor, signs: torch.Tensor | None = None,
         k = rows.shape[0]
         tensors.append(rows)
     check_cuda(*tensors)
+    if x.data_ptr() % 16:  # the kernel reads x 16 bytes at a time
+        x = x.clone()
     out = torch.empty((n_rows, k), dtype=x.dtype, device=x.device)
     _build.launch(
         "fwht", _DTYPES[x.dtype], x.data_ptr(),

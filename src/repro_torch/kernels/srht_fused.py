@@ -20,7 +20,7 @@ from . import _build
 from .fwht import check_cuda, check_width, stream_handle
 
 LAUNCHES: collections.Counter = collections.Counter()
-MAX_D = 1 << 14  # two float32 rows in shared memory (128 KB)
+MAX_D = 1 << 14  # two float32 rows in shared memory (128 KB) for K3 and K4
 
 
 def _f32(name: str, t: torch.Tensor, shape: tuple) -> None:

@@ -160,6 +160,18 @@ def test_golden_bitwise(name):
         np.testing.assert_allclose(got[-1].numpy(), want[-1], rtol=1e-6, atol=1e-5 * d)
 
 
+@pytest.mark.parametrize("name", [name for name in CELLS if name != "random"])
+def test_decode_sum_schedule_matches_jax_oracle(name):
+    """The CUDA decode sum's per-client order, as tests/test_torch_fwht_schedule.py
+    emulates it, against the JAX oracle of the same cell, bit for bit."""
+    from test_torch_fwht_schedule import emulate_decode_sum
+
+    inputs, want = _jax_cells()[name]
+    _, signs, rows, z, _, _ = (_t(a) for a in inputs)
+    d = CELLS[name][2]
+    _same(emulate_decode_sum(z, signs, rows, d, 1.0 / np.sqrt(d)), want[6])
+
+
 def test_random_floats_close():
     got, want = _cell("random")
     for g, w in zip(got, want):
@@ -193,22 +205,28 @@ def test_ops_plain_paths():
 
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
-    """Each CUDA kernel against its plain version on the card, golden grid."""
+    """Each CUDA kernel against its plain version on the card, golden grid;
+    K1 and K3 also at d = 1024 and 2048 (one warp a row, and a row across
+    the warps of a block)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     rng = np.random.default_rng(5)
-    n, c, d, k = 3, 5, 512, 64
+    n, c, k = 3, 5, 64
     dev = "cuda"
-    x = torch.from_numpy(_ints(rng, (n, c, d))).to(dev)
-    signs = torch.from_numpy(_signs(rng, (n, 1, d))).to(dev)
-    rows = torch.from_numpy(_rows(rng, (n, 1), k, d)).long().to(dev)
-    mask = tref.srht_scatter_ref(torch.ones(rows.shape, device=dev), rows, d)
-    cases = [
-        lambda u: tops.srht_encode(x[0], signs[0, 0], rows[0, 0], use_kernel=u),
-        lambda u: tops.srht_encode_batch(x, signs.expand(n, c, d), rows.expand(n, c, k),
-                                         use_kernel=u),
-        lambda u: tops.srht_decode_sum(x[..., :k].contiguous(), signs, rows, d, use_kernel=u),
-        lambda u: tops.srht_gram_apply(x[0], signs, mask, use_kernel=u),
-    ]
-    for case in cases:
-        assert torch.equal(case("force"), case("never"))
+    for d in (512, 1024, 2048):
+        x = torch.from_numpy(_ints(rng, (n, c, d))).to(dev)
+        signs = torch.from_numpy(_signs(rng, (n, 1, d))).to(dev)
+        rows = torch.from_numpy(_rows(rng, (n, 1), k, d)).long().to(dev)
+        mask = tref.srht_scatter_ref(torch.ones(rows.shape, device=dev), rows, d)
+        cases = [
+            lambda u: tops.srht_encode(x[0], signs[0, 0], rows[0, 0], use_kernel=u),
+            lambda u: tops.srht_decode_sum(x[..., :k].contiguous(), signs, rows, d, use_kernel=u),
+        ]
+        if d == 512:
+            cases += [
+                lambda u: tops.srht_encode_batch(x, signs.expand(n, c, d), rows.expand(n, c, k),
+                                                 use_kernel=u),
+                lambda u: tops.srht_gram_apply(x[0], signs, mask, use_kernel=u),
+            ]
+        for case in cases:
+            assert torch.equal(case("force"), case("never"))
