@@ -12,21 +12,22 @@ result):
    on the golden grid (d = 2 to 16384, and 32768 for K1; small integers,
    +-1 signs, ragged chunk counts, shared and per-chunk draws, bf16 input
    for the FWHT, the per-row-sign FWHT with its signs before, after and on
-   both sides of the transform; the Gram apply above d = 512 within 1e-4
-   relative, as its double transform leaves the exact range), and on random
-   float32 at the main path's shapes: K1 (also in bf16) and K3 (shared and
-   per-chunk draws) bitwise, K2 and K4 within rtol 1e-5 / atol 1e-5;
+   both sides of the transform; K4 both alone and as the fused CG step, with
+   a frozen chunk and one that converges), and on random float32 at the
+   main path's shapes: K1 (also in bf16), K3 and both K4 entries (shared and
+   per-chunk draws) bitwise, K2 within rtol 1e-5 / atol 1e-5;
 4. the main path at full width: ``compressed_mean_tree`` of
    ``RandProjSpatial(k=64, d_block=1024, transform="avg")`` over a gradient
    tree with mamba2-130m's 11 parameter leaves (129,100,224 values) for 4
    clients correlated at rho = 0.9: three rounds with shared randomness, one
    with a draw per chunk. Launch counts are zeroed just before these rounds
-   and read just after; each of K1-K4 must have launched. Each round is then
+   and read just after; K1, K2, K3 and the fused CG step (K4) must have
+   launched, the step in every round, and K4 alone never. Each round is then
    re-run with the plain versions on the card (relative L2 gap <= 1e-3), and
    its error against the true mean must beat Rand-k's expected error;
 5. profile one more shared-randomness round (torch.profiler): device time
-   by kernel against the round's wall time; every K1 and K3 launch in it
-   must be the register-resident butterfly kernel, by name;
+   by kernel against the round's wall time; every K1, K3 and CG step launch
+   in it must be the register-resident butterfly kernel, by name;
 6. a small tree through the kernels on the card and through the plain
    versions on the CPU, which draw the same maps (relative L2 <= 1e-4);
 7. the flash-attention kernel (K5) against its plain version on the card,
@@ -56,13 +57,16 @@ result):
 10. time each kernel at its main path's shapes (CUDA events, median of 10),
    beside its plain version, its bound and a one-call PyTorch equivalent (a
    dense float32 matmul or einsum for K1-K4, scaled_dot_product_attention
-   with K/V repeated for K5, each checked against the kernel); K5's two
-   routes both at the serve shape, each with its bound share and achieved
-   TFLOP/s; print them as one JSON line.
+   with K/V repeated for K5, each checked against the kernel); the fused CG
+   step beside its bound and the unfused path it replaced (K4 alone plus
+   the step's updates as PyTorch ops; no one PyTorch call computes a CG
+   step); K5's two routes both at the serve shape, each with its bound
+   share and achieved TFLOP/s; print them as one JSON line.
 
 The build phase prints ``-Xptxas -v``'s registers, shared memory and
-spills for K5's tensor-core kernel and for K1's and K3's butterfly kernels
-(one entry a width and dtype) and fails if any of them spills.
+spills for K5's tensor-core kernel and for the butterfly kernels of K1,
+K3 and both K4 entries (one entry a width and dtype) and fails if any of
+them spills.
 
 The last line is {"ok": true, "device": {...}}. Needs one card; exits 1
 without CUDA or outside a checkout of the repository.
@@ -115,6 +119,9 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                         "src/repro/kernels/srht_fused.py:191"),
     "srht_gram_apply": ("src/repro_torch/kernels/csrc/srht_fused.cu",
                         "src/repro/kernels/srht_fused.py:240"),
+    # K4 with one CG iteration fused into its epilogue: what the decode runs
+    "srht_cg_step": ("src/repro_torch/kernels/csrc/srht_fused.cu",
+                     "src/repro/kernels/srht_fused.py:240"),
     # K5's two routes, by dtype
     "flash_attention_bf16": ("src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                              "src/repro/kernels/flash_attention.py:77"),
@@ -123,12 +130,15 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
 }
 FLASH_ROUTES = {torch.bfloat16: "flash_attention_bf16", torch.float32: "flash_attention_f32"}
 TC_KERNEL = "flash_attention_kernel_bf16_wgmma"  # K5's tensor-core kernel in a profile
-# K1's and K3's register-resident butterfly kernels, by function name
-BUTTERFLY_KERNELS = {"fwht": ("fwht", "fwht_butterfly_kernel"),
-                     "srht_decode_sum": ("srht_fused", "decode_sum_butterfly_kernel")}
+# the register-resident butterfly kernels (K1, K3, K4's two entries), by
+# function name, and their entries in ptxas's output (one a width and dtype)
+BUTTERFLY_KERNELS = {"fwht": ("fwht", "fwht_butterfly_kernel", 30),
+                     "srht_decode_sum": ("srht_fused", "decode_sum_butterfly_kernel", 14),
+                     "srht_gram_apply": ("srht_fused", "gram_apply_butterfly_kernel", 14),
+                     "srht_cg_step": ("srht_fused", "cg_step_butterfly_kernel", 14)}
 GOLDEN_WIDTHS = (2, 8, 32, 64, 512, 1024, 2048, 4096, 16384)
 K1_ONLY_WIDTH = 32768  # K1 takes d up to 32768, the others up to 16384
-ESTIMATOR_KERNELS = ("fwht", "fwht_rowsigns", "srht_decode_sum", "srht_gram_apply")
+ESTIMATOR_KERNELS = ("fwht", "fwht_rowsigns", "srht_decode_sum", "srht_cg_step")
 
 # the serving path: gemma3-4b at full width (src/repro/configs/gemma3_4b.py)
 GEMMA3_4B_PARAMS = 3_879_907_840
@@ -148,12 +158,17 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-300))
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` on the card, by CUDA events."""
+def time_ms(fn, reps: int = 10, warmup: int = 2, prep=None) -> float:
+    """Median milliseconds of ``fn`` on the card, by CUDA events; ``prep``
+    (untimed) runs before each call."""
     for _ in range(warmup):
+        if prep:
+            prep()
         fn()
     pairs = []
     for _ in range(reps):
+        if prep:
+            prep()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -217,11 +232,10 @@ def phase_build() -> None:
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
     if "Used" not in info or not spills or any(int(a) or int(b) for a, b in spills):
         fail(f"K5's tensor-core kernel: no register count, or spills, in ptxas's output {spills}")
-    # K1: 15 widths x 2 dtypes; K3: 14 widths
-    for name, n_entries in (("fwht", 30), ("srht_decode_sum", 14)):
-        source, kernel = BUTTERFLY_KERNELS[name]
+    for source in sorted({source for source, _, _ in BUTTERFLY_KERNELS.values()}):
+        log(f"ptxas, {source}.cu:\n" + _build.ptxas_info(source).rstrip())
+    for name, (source, kernel, n_entries) in BUTTERFLY_KERNELS.items():
         info = _build.ptxas_info(source)
-        log(f"ptxas, {source}.cu:\n" + info.rstrip())
         entries = _ptxas_entries(info, kernel)
         log(f"{name} ({kernel}): registers by entry "
             f"{[regs for _, regs, _, _ in entries]}, spill bytes "
@@ -250,6 +264,38 @@ def _mask(rows, d):
     from repro_torch.kernels import ref
 
     return ref.srht_scatter_ref(torch.ones(rows.shape, device=rows.device), rows, d)
+
+
+def cg_state(y: torch.Tensor, c0, c1, *, frozen: bool) -> tuple:
+    """A CG state as the solve's first step sees it: x = 0, r = p = y, rs =
+    <y, y>, tol2 = 1e-8 rs. With ``frozen``, chunk 0 is already done and
+    chunk 1 converges in this step. -> ([x, r, p, rs, done], c0, c1, tol2)"""
+    from repro_torch.kernels import ref
+
+    rs = ref.row_dot_ref(y, y)
+    tol2 = 1e-8 * rs
+    done = torch.zeros(rs.shape, dtype=torch.bool, device=y.device)
+    if frozen and y.shape[0] > 2:
+        done[0] = True
+        tol2[1] = 3.0e38
+    return [torch.zeros_like(y), y.clone(), y.clone(), rs, done], c0, c1, tol2
+
+
+def cg_step(state, signs, rows, use_kernel: str) -> list:
+    """One CG step on a copy of ``state``; -> the new [x, r, p, rs, done]."""
+    from repro_torch.kernels import ops
+
+    (x, r, p, rs, done), c0, c1, tol2 = state
+    out = [t.clone() for t in (x, r, p, rs, done)]
+    ops.srht_cg_step(*out, c0, c1, tol2, signs, rows, use_kernel=use_kernel)
+    return out
+
+
+def check_cg_step(errs, state, signs, rows, what: str) -> None:
+    """The fused CG step against the plain step: every output bitwise."""
+    got, want = cg_step(state, signs, rows, "force"), cg_step(state, signs, rows, "never")
+    for name, g, w in zip(("x", "r", "p", "rs", "done"), got, want):
+        errs.check("srht_cg_step", g, w, exact=True, what=f"{what} {name}")
 
 
 class Errors:
@@ -322,14 +368,19 @@ def phase_kernel_checks(errs: Errors) -> None:
                            ops.srht_decode_sum(z, signs, rows, d, use_kernel="force"),
                            ops.srht_decode_sum(z, signs, rows, d, use_kernel="never"),
                            exact=True, what=tag)
-                # K4: Gram apply
+                # K4: the Gram apply, and the fused CG step (c0, c1 one value
+                # with shared draws, one a chunk with per-chunk draws)
                 v = _ints(g, (c, d), hi=4)
-                mask = _mask(rows, d)
-                want = ops.srht_gram_apply(v, signs, mask, use_kernel="never")
                 errs.check("srht_gram_apply",
-                           ops.srht_gram_apply(v, signs, mask, use_kernel="force"), want,
-                           exact=d <= 512, rtol=1e-4, atol=1e-4 * float(want.abs().max()),
-                           what=tag)
+                           ops.srht_gram_apply(v, signs, rows, use_kernel="force"),
+                           ops.srht_gram_apply(v, signs, rows, use_kernel="never"),
+                           exact=True, what=tag)
+                if shared:
+                    c0, c1 = torch.tensor(0.125, device=DEV), torch.tensor(0.875, device=DEV)
+                else:
+                    c1 = torch.rand((c,), generator=g, device=DEV) * 0.8 + 0.1
+                    c0 = 1.0 - c1 + 0.01
+                check_cg_step(errs, cg_state(v, c0, c1, frozen=True), signs, rows, tag)
                 n_golden += 1
     for c in (1, 5, 9):  # K1 alone at its widest
         d = K1_ONLY_WIDTH
@@ -343,7 +394,7 @@ def phase_kernel_checks(errs: Errors) -> None:
                        ops.fwht(x.to(dt), scale=0.25, use_kernel="never"),
                        exact=True, what=f"golden d={d} C={c} {dt} bare")
     torch.cuda.synchronize()
-    log(f"kernels vs plain, golden grid: {n_golden} cells x 4 kernels (d = "
+    log(f"kernels vs plain, golden grid: {n_golden} cells x 5 kernels (d = "
         f"{', '.join(map(str, GOLDEN_WIDTHS))}) and K1 at d = {K1_ONLY_WIDTH} ok")
 
 
@@ -365,7 +416,7 @@ def full_width_inputs(seed: int = 7) -> dict:
         "C": c,
         "x": torch.randn((c, D_BLOCK), generator=g, device=DEV),
         "z": torch.randn((N_CLIENTS, c, K), generator=g, device=DEV),
-        "signs": shared["signs"], "rows": shared["rows"], "mask": _mask(shared["rows"], D_BLOCK),
+        "signs": shared["signs"], "rows": shared["rows"],
         "pc_signs": per_chunk["signs"], "pc_rows": per_chunk["rows"],
         "decode_pc_signs": decode_pc["signs"], "decode_pc_rows": decode_pc["rows"],
     }
@@ -389,15 +440,28 @@ def kernel_calls(inp: dict) -> dict:
             lambda u: ops.srht_decode_sum(z, inp["signs"], inp["rows"], d, use_kernel=u),
             c * n * (fl + 3 * d), 4 * (n * c * k + n * d + c * d) + 8 * n * k),
         "srht_gram_apply": (
-            lambda u: ops.srht_gram_apply(x, inp["signs"], inp["mask"], use_kernel=u),
-            c * n * (2 * fl + 5 * d), 4 * (2 * c * d + 2 * n * d)),
+            lambda u: ops.srht_gram_apply(x, inp["signs"], inp["rows"], use_kernel=u),
+            c * n * (2 * fl + 5 * d), 4 * (2 * c * d + n * d) + 8 * n * k),
     }
 
 
+def cg_step_work(inp: dict) -> tuple:
+    """(operations, bytes) of one fused CG step at full width, shared draws:
+    per chunk and client the Gram apply's two transforms and 5 d products
+    and sums, per chunk 13 d for the update (ap 3 d, the two dot products
+    4 d, x, r and p 2 d each); x, r and p read once and written once, rs
+    and done read and written, tol2 read (c0 and c1 one value each), the
+    draws read once."""
+    c, d, k, n = inp["C"], D_BLOCK, K, N_CLIENTS
+    fl = d * np.log2(d)
+    return (c * (n * (2 * fl + 5 * d) + 13 * d),
+            4 * 6 * c * d + c * (4 + 4 + 1 + 1 + 4) + 8 + 4 * n * d + 8 * n * k)
+
+
 def phase_full_width_checks(errs: Errors, calls: dict, inp: dict) -> None:
-    """Every kernel at the main path's shapes on random float32: K1 and K3
-    bitwise (K1 also in bf16, K3 also with a draw per chunk), K2 and K4
-    within rtol 1e-5 / atol 1e-5."""
+    """Every kernel at the main path's shapes on random float32: K1, K3 and
+    both K4 entries bitwise (K1 also in bf16, K3 and K4 also with a draw per
+    chunk), K2 within rtol 1e-5 / atol 1e-5."""
     from repro_torch.kernels import ops
 
     for name, (call, _, _) in calls.items():
@@ -413,8 +477,19 @@ def phase_full_width_checks(errs: Errors, calls: dict, inp: dict) -> None:
     errs.check("srht_decode_sum", ops.srht_decode_sum(z, s, r, D_BLOCK, use_kernel="force"),
                ops.srht_decode_sum(z, s, r, D_BLOCK, use_kernel="never"), exact=True,
                what="full-width random f32, a draw per chunk")
+    x = inp["x"]
+    errs.check("srht_gram_apply", ops.srht_gram_apply(x, s, r, use_kernel="force"),
+               ops.srht_gram_apply(x, s, r, use_kernel="never"), exact=True,
+               what="full-width random f32, a draw per chunk")
+    c1 = torch.full((inp["C"],), RHO, device=DEV)
+    for what, signs, rows, c0, c1 in (
+            ("shared draws", inp["signs"], inp["rows"], 1.0 - c1[0], c1[0]),
+            ("a draw per chunk", s, r, 1.0 - c1 + 0.01, c1)):
+        check_cg_step(errs, cg_state(x, c0, c1, frozen=True), signs, rows,
+                      f"full-width random f32, {what}")
     torch.cuda.synchronize()
-    log("kernels vs plain, random f32 at full width: ok (K1 in f32 and bf16 and K3 bitwise)")
+    log("kernels vs plain, random f32 at full width: ok (K1 in f32 and bf16, K3 and both K4 "
+        "entries bitwise)")
 
 
 # -------------------------------------------------------------------- phase 4
@@ -479,8 +554,8 @@ def phase_main_path(tree: dict) -> dict:
         rows.append({
             "round": len(rows) + 1, "shared_randomness": shared,
             "wall_ms": a.elapsed_time(b),
-            "cg_iterations_launched": after.get("srht_gram_apply", 0)
-            - before.get("srht_gram_apply", 0),
+            "cg_iterations_launched": after.get("srht_cg_step", 0)
+            - before.get("srht_cg_step", 0),
             "rel_err_vs_true_mean": rel_l2(outs[-1], true_mean),
             "bytes_sent_over_full": info["bytes_sent"] / info["full_bytes"],
         })
@@ -488,6 +563,11 @@ def phase_main_path(tree: dict) -> dict:
     missing = [name for name in ESTIMATOR_KERNELS if launches.get(name, 0) == 0]
     if missing:
         fail(f"the main path launched no {missing}")
+    if launches.get("srht_gram_apply", 0):
+        fail("the main path launched K4 alone; its CG runs the fused step")
+    steps = [r["cg_iterations_launched"] for r in rows]
+    if min(steps) == 0:
+        fail(f"CG steps launched by round: {steps}; every round runs its solve on the step")
 
     for r, (seed, shared), out in zip(rows, rounds, outs):
         plain_tree, _, _ = collectives.compressed_mean_tree(_spec(shared, "never"), seed, tree,
@@ -539,9 +619,9 @@ def _profiled(fn) -> tuple:
 
 def phase_profile(tree: dict) -> dict:
     """Where one shared-randomness round's time goes: device time by kernel
-    (torch.profiler) against the round's wall time. Every K1 and K3 launch
-    the wrappers count in it must show in the profile as the butterfly
-    kernel, by name."""
+    (torch.profiler) against the round's wall time. Every K1, K3 and CG
+    step launch the wrappers count in it must show in the profile as the
+    butterfly kernel, by name."""
     from repro_torch.dist import collectives
     from repro_torch.kernels import ops
 
@@ -550,7 +630,9 @@ def phase_profile(tree: dict) -> dict:
         lambda: collectives.compressed_mean_tree(_spec(True, "auto"), 5, tree, device=DEV))
     after = ops.launch_counts()
     butterfly = {}
-    for name, (_, kernel) in BUTTERFLY_KERNELS.items():
+    for name, (_, kernel, _) in BUTTERFLY_KERNELS.items():
+        if name not in ESTIMATOR_KERNELS:
+            continue
         launched = after.get(name, 0) - before.get(name, 0)
         named = {key: counts[key] for key in by_name if kernel in key}
         if launched == 0 or sum(named.values()) != launched:
@@ -898,6 +980,57 @@ def phase_timing(calls: dict, launches: dict, errs: Errors, inputs: dict) -> lis
             "over_library": ms / library_ms,
         })
         log(f"{name}: {json.dumps(out[-1])}")
+    out.append(cg_step_timing(launches, errs, inputs))
+    return out
+
+
+def cg_step_timing(launches: dict, errs: Errors, inp: dict) -> dict:
+    """The fused CG step at full width from the solve's first state (no
+    chunk done), shared draws, the state restored before each launch
+    (untimed): against its bound, its plain version and the unfused path it
+    replaced (K4 alone, then the step's updates as PyTorch ops). No one
+    PyTorch call computes a CG step, so ``library_ms`` is null. Also timed,
+    outside the bound: the step with a draw per (client, chunk), as the
+    per-chunk round runs it (2 GB of signs more a launch)."""
+    from repro_torch.kernels import ops, ref
+
+    c0, c1 = torch.tensor(1.0 - RHO, device=DEV), torch.tensor(RHO, device=DEV)
+    state = cg_state(inp["x"], c0, c1, frozen=False)
+    work = [t.clone() for t in state[0]]
+
+    def restore():
+        for w, s0 in zip(work, state[0]):
+            w.copy_(s0)
+
+    def run(signs, rows, use_kernel):
+        return lambda: ops.srht_cg_step(*work, c0, c1, state[3], signs, rows,
+                                        use_kernel=use_kernel)
+
+    signs, rows = inp["signs"], inp["rows"]
+    ms = time_ms(run(signs, rows, "force"), prep=restore)
+    plain_ms = time_ms(run(signs, rows, "never"), reps=3, warmup=1, prep=restore)
+    mask = _mask(rows, D_BLOCK)
+
+    def unfused():
+        ref.srht_cg_step_ref(*work, c0, c1, state[3], signs, mask,
+                             gram_apply=lambda v, s, _m: ops.srht_gram_apply(
+                                 v, s, rows, use_kernel="force"))
+
+    unfused_ms = time_ms(unfused, prep=restore)
+    pc_ms = time_ms(run(inp["decode_pc_signs"], inp["decode_pc_rows"], "force"), prep=restore)
+    n_ops, n_bytes = cg_step_work(inp)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    out = {
+        "name": "srht_cg_step", "route": "cuda", "source": KERNELS["srht_cg_step"][0],
+        "replaces": KERNELS["srht_cg_step"][1], "launches": int(launches.get("srht_cg_step", 0)),
+        "max_abs_err": errs.max["srht_cg_step"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "bound_share": max(t_bytes, t_ops) / ms,
+        "unfused_ms": unfused_ms, "over_unfused": ms / unfused_ms,
+        "ms_draw_per_chunk": pc_ms,
+    }
+    log(f"srht_cg_step: {json.dumps(out)}")
     return out
 
 

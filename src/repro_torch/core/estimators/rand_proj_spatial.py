@@ -6,8 +6,9 @@ Decode (server):     x_hat = (beta_eps / n) x,
                      ((1 - rho + eps) I + rho S) x = y,  y = sum_i G_i^T z_i
 
 T is affine, so applying (T(S) + eps)^-1 to y is a linear resolvent solve:
-conjugate gradients, batched over chunks, whose inner apply S v is one
-launch of the Gram kernel. y is one launch of the decode-sum kernel.
+conjugate gradients, batched over chunks; each iteration (the Gram apply
+S p and every update) is one launch of the CG step kernel. y is one launch
+of the decode-sum kernel.
 
 ``shared_randomness=True`` uses one map per client for every chunk of a
 round; ``False`` draws one per (client, chunk), keyed by the global chunk
@@ -91,49 +92,35 @@ def _fused_draws(spec, key, n, c, client_ids=None, chunk_offset=0, device=None) 
     return {"signs": signs, "rows": rows}
 
 
-def _cg_resolvent_solve(y, rho, eps, apply_s, iters):
-    """Batched CG for ((1 - rho + eps) I + rho S) x = y, one system per chunk.
+def _cg_resolvent_solve(y, rho, eps, signs, rows, iters, use_kernel="auto"):
+    """Batched CG for ((1 - rho + eps) I + rho S) x = y, one system per chunk,
+    S v = sum_i G_i^T G_i v with the draws ``signs`` (n, C|1, d) and ``rows``
+    (n, C|1, k). Each iteration is one ``srht_cg_step`` (one kernel launch
+    on the card), which updates x, r, p, rs and done in place.
 
     Converged chunks are FROZEN (every update is a ``where(done, old, new)``),
     so running more iterations than a chunk needs changes none of its bits.
     That lets the loop test "all chunks done" on the host only every
     ``_CHECK_EVERY`` iterations, with the same result as the JAX loop's test
     on every iteration. y = 0 chunks are done at iteration 0 and return
-    exactly 0; the denominators are guarded so they cannot NaN.
+    exactly 0; the denominators are guarded so they cannot NaN. The row dot
+    products sum in ``row_dot_ref``'s fixed order, on both routes.
 
     y: (C, d); rho: 0-dim or (C,). -> (x, iterations), the count as the JAX
     loop reports it (iterations begun while some chunk was not done)."""
     c0 = 1.0 - rho + eps
     c1 = rho
-
-    def col(v):
-        return v if v.dim() == 0 else v[:, None]
-
-    def apply_m(v):
-        return col(c0) * v + col(c1) * apply_s(v)
-
-    zero = torch.zeros((), dtype=y.dtype, device=y.device)
-    one = torch.ones((), dtype=y.dtype, device=y.device)
-    ys = (y * y).sum(-1, keepdim=True)
+    ys = kref.row_dot_ref(y, y)
     tol2 = (_CG_TOL * _CG_TOL) * ys
     x = torch.zeros_like(y)
-    r, p, rs = y, y, ys
+    r, p, rs = y.clone(), y.clone(), ys
     done = ys <= tol2
     it = torch.zeros((), dtype=torch.int32, device=y.device)
     for step in range(iters):
         if step % _CHECK_EVERY == 0 and bool(done.all()):
             break
         it = it + (~done.all()).to(torch.int32)
-        ap = apply_m(p)
-        pap = (p * ap).sum(-1, keepdim=True)
-        alpha = torch.where(done, zero, rs / torch.where(pap > 0, pap, one))
-        x = torch.where(done, x, x + alpha * p)
-        r2 = torch.where(done, r, r - alpha * ap)
-        rs2 = torch.where(done, rs, (r2 * r2).sum(-1, keepdim=True))
-        done2 = done | (rs2 <= tol2)
-        bet = torch.where(done2, zero, rs2 / torch.where(rs > 0, rs, one))
-        p = torch.where(done2, p, r2 + bet * p)
-        r, rs, done = r2, rs2, done2
+        kops.srht_cg_step(x, r, p, rs, done, c0, c1, tol2, signs, rows, use_kernel=use_kernel)
     return x, it
 
 
@@ -171,14 +158,8 @@ def _decode_fused(spec, key, payloads, n, client_ids=None, chunk_offset=0, draws
         rho = torch.tensor(transforms.rho_for(spec.transform, n, spec.r_value),
                            dtype=torch.float32, device=device)
 
-    # 0/1 indicator of each draw's rows, at the draws' (n, 1|C, d) shape
-    mask = kref.srht_scatter_ref(torch.ones(rows.shape, dtype=torch.float32, device=device),
-                                 rows, d)
-
-    def apply_s(v):
-        return kops.srht_gram_apply(v, signs, mask, use_kernel=spec.use_kernel)
-
-    xh, _ = _cg_resolvent_solve(y, rho, spec.ridge, apply_s, spec.cg_iters)
+    xh, _ = _cg_resolvent_solve(y, rho, spec.ridge, signs, rows, spec.cg_iters,
+                                spec.use_kernel)
     b = _beta(spec, n, rho, eps=spec.ridge, bank=bank)
     scale = (b / n) if b.dim() == 0 else (b / n)[:, None]
     return scale * xh

@@ -36,7 +36,8 @@ SIGNATURES = {
     "srht_fused": {
         "fwht_rowsigns_f32": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P),
         "srht_decode_sum_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-        "srht_gram_apply_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        "srht_gram_apply_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        "srht_cg_step_f32": (_P,) * 10 + (_I,) * 8 + (_F, _P),
     },
     "flash_attention": {
         "flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),

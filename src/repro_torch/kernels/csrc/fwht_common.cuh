@@ -9,8 +9,8 @@
 // FMA, which would round differently.
 //
 // Two forms of it:
-//   * fwht_smem: one row in shared memory, one __syncthreads a stage (K2, K4);
-//   * Butterfly<LOG_D>: the row in registers (K1, K3), described below.
+//   * fwht_smem: one row in shared memory, one __syncthreads a stage (K2);
+//   * Butterfly<LOG_D>: the row in registers (K1, K3, K4), described below.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -52,7 +52,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// The register-resident butterfly (K1 fwht.cu, K3 srht_fused.cu).
+// The register-resident butterfly (K1 fwht.cu, K3 and K4 srht_fused.cu).
 //
 // Every thread holds 32 floats of a tile in registers. A group of threads
 // owns one tile: one warp and 1024 elements (1024 / d rows) for d <= 1024,

@@ -11,8 +11,9 @@ version on a CPU tensor (port of repro/kernels/ops.py).
 On a CUDA tensor there is no fallback: a build or launch failure raises.
 
 ``fwht``, ``srht_encode`` and ``srht_decode`` run the FWHT kernel
-(csrc/fwht.cu); ``srht_encode_batch``, ``srht_decode_sum`` and
-``srht_gram_apply`` the fused kernels (csrc/srht_fused.cu);
+(csrc/fwht.cu); ``srht_encode_batch``, ``srht_decode_sum``,
+``srht_gram_apply`` and ``srht_cg_step`` the fused kernels
+(csrc/srht_fused.cu);
 ``flash_attention`` a flash-attention kernel chosen by dtype: bf16 the
 tensor-core kernel (csrc/flash_attention_tc.cu), float32 the CUDA-core one
 (csrc/flash_attention.cu).
@@ -144,16 +145,41 @@ def srht_decode_sum(z: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, d:
     return _ref.srht_decode_sum_ref(z, signs, rows, d)
 
 
-def srht_gram_apply(v: torch.Tensor, signs: torch.Tensor, mask: torch.Tensor, *,
+def _mask(rows: torch.Tensor, d: int, dtype, device) -> torch.Tensor:
+    """The 0/1 indicator of each draw's rows, (n, C|1, k) -> (n, C|1, d)."""
+    return _ref.srht_scatter_ref(torch.ones(rows.shape, dtype=dtype, device=device), rows, d)
+
+
+def srht_gram_apply(v: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, *,
                     use_kernel: str = "auto") -> torch.Tensor:
-    """Matrix-free ``S v = sum_i G_i^T G_i v``; v (C, d), signs and mask
-    (n, C|1, d), mask the 0/1 indicator of each draw's rows. -> (C, d)"""
+    """Matrix-free ``S v = sum_i G_i^T G_i v``; v (C, d), signs (n, C|1, d),
+    rows (n, C|1, k) the draws' rows. -> (C, d)"""
+    d = v.shape[-1]
     if _use_kernel(v, use_kernel):
         return _fused.srht_gram_apply_cuda(
-            v.float().contiguous(), signs.float().contiguous(), mask.float().contiguous(),
-            scale=1.0 / v.shape[-1],
+            v.float().contiguous(), signs.float().contiguous(), rows.long().contiguous(),
+            scale=1.0 / d,
         )
-    return _ref.srht_gram_apply_ref(v, signs, mask)
+    return _ref.srht_gram_apply_ref(v, signs, _mask(rows, d, v.dtype, v.device))
+
+
+def srht_cg_step(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor, rs: torch.Tensor,
+                 done: torch.Tensor, c0: torch.Tensor, c1: torch.Tensor, tol2: torch.Tensor,
+                 signs: torch.Tensor, rows: torch.Tensor, *, use_kernel: str = "auto") -> None:
+    """One iteration of the batched CG for (c0 I + c1 S) x = y, IN PLACE:
+    updates x, r, p (C, d) float32, rs (C, 1) float32 and done (C, 1) bool;
+    c0, c1: 0-dim or (C,) float32; tol2 (C, 1); signs (n, C|1, d), rows
+    (n, C|1, k). Chunks already done keep every bit. The kernel runs the
+    whole step (S p and every update) in one launch."""
+    if _use_kernel(p, use_kernel):
+        _fused.srht_cg_step_cuda(x, r, p, rs, done, c0.float(), c1.float(), tol2,
+                                 signs.float().contiguous(), rows.long().contiguous(),
+                                 scale=1.0 / p.shape[-1])
+        return
+    new = _ref.srht_cg_step_ref(x, r, p, rs, done, c0, c1, tol2, signs,
+                                _mask(rows, p.shape[-1], p.dtype, p.device))
+    for dst, src in zip((x, r, p, rs, done), new):
+        dst.copy_(src)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, rep: int,

@@ -137,3 +137,42 @@ def srht_gram_apply_ref(v: torch.Tensor, signs: torch.Tensor,
     t = fwht_rowsigns_ref(v[None], signs, sign_pre=True)
     t = fwht_rowsigns_ref(mask * t, signs, sign_post=True, scale=1.0 / d)
     return _client_sum(t)
+
+
+def row_dot_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum_j a[..., j] * b[..., j]`` in a fixed order, keepdim: multiply,
+    then halve ``t = t[..., :h] + t[..., h:]`` until one column is left. The
+    CG step kernel reduces its rows in this order. Width a power of two."""
+    t = a * b
+    d = t.shape[-1]
+    if d & (d - 1) != 0:
+        raise ValueError(f"last dim must be a power of two, got {d}")
+    while t.shape[-1] > 1:
+        h = t.shape[-1] // 2
+        t = t[..., :h] + t[..., h:]
+    return t
+
+
+def srht_cg_step_ref(x, r, p, rs, done, c0, c1, tol2, signs, mask, *,
+                     gram_apply=srht_gram_apply_ref) -> tuple:
+    """One iteration of the batched CG for ((c0) I + (c1) S) x = y, one
+    system per chunk, S v = ``gram_apply(v, signs, mask)``.
+
+    x, r, p: (C, d); rs, tol2: (C, 1); done: (C, 1) bool; c0, c1: 0-dim or
+    (C,); signs, mask: (n, C|1, d). Chunks already done keep every bit (each
+    update is a ``where(done, old, new)``). -> new (x, r, p, rs, done)"""
+    def col(v):
+        return v if v.dim() == 0 else v[:, None]
+
+    zero = torch.zeros((), dtype=p.dtype, device=p.device)
+    one = torch.ones((), dtype=p.dtype, device=p.device)
+    ap = col(c0) * p + col(c1) * gram_apply(p, signs, mask)
+    pap = row_dot_ref(p, ap)
+    alpha = torch.where(done, zero, rs / torch.where(pap > 0, pap, one))
+    x2 = torch.where(done, x, x + alpha * p)
+    r2 = torch.where(done, r, r - alpha * ap)
+    rs2 = torch.where(done, rs, row_dot_ref(r2, r2))
+    done2 = done | (rs2 <= tol2)
+    bet = torch.where(done2, zero, rs2 / torch.where(rs > 0, rs, one))
+    p2 = torch.where(done2, p, r2 + bet * p)
+    return x2, r2, p2, rs2, done2

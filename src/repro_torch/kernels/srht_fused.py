@@ -4,11 +4,15 @@ ports of ``repro/kernels/srht_fused.py``:
 ``fwht_rowsigns_cuda``   <- ``fwht_rowsigns_pallas``   (per-row-draw encode)
 ``srht_decode_sum_cuda`` <- ``srht_decode_sum_pallas`` (y = sum_i G_i^T z_i)
 ``srht_gram_apply_cuda`` <- ``srht_gram_apply_pallas`` (CG inner apply S v)
+``srht_cg_step_cuda``    <- the same kernel with one CG iteration fused into
+                            its epilogue (the decode's solve runs this one)
 
-Each checks shapes, dtypes and devices, allocates its output and launches on
-PyTorch's current stream, with no fallback. ``LAUNCHES`` counts launches.
-Unlike the TPU decode, ``srht_decode_sum_cuda`` takes the (n, C, k) payloads
-and their rows and scatters them in shared memory.
+Each checks shapes, dtypes and devices, allocates its output (the CG step
+updates its state in place) and launches on PyTorch's current stream, with
+no fallback. ``LAUNCHES`` counts launches. Unlike the TPU kernels,
+``srht_decode_sum_cuda`` takes the (n, C, k) payloads and their rows and
+scatters them in shared memory, and the Gram apply and the CG step take the
+draws' rows instead of the (n, C|1, d) float mask.
 """
 from __future__ import annotations
 
@@ -96,28 +100,84 @@ def srht_decode_sum_cuda(z: torch.Tensor, signs: torch.Tensor, rows: torch.Tenso
     return out
 
 
-def srht_gram_apply_cuda(v: torch.Tensor, signs: torch.Tensor, mask: torch.Tensor, *,
-                         scale: float) -> torch.Tensor:
-    """``S v = sum_i scale * s_i * H (m_i * H (s_i * v))``.
-
-    v: (C, d) float32; signs, mask: (n, C|1, d) float32. -> (C, d) float32."""
+def _draws(v: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor) -> tuple:
+    """Checks v (C, d) float32 against its draws; -> (C, d, n, k, signs per
+    chunk, rows per chunk)."""
     if v.dim() != 2:
         raise ValueError(f"v must be (C, d), got {tuple(v.shape)}")
     c, d = v.shape
     check_width(d)
     if d > MAX_D or c >= 1 << 31:
-        raise ValueError(f"srht_gram_apply takes d <= {MAX_D} and C < 2**31, got d={d}, C={c}")
+        raise ValueError(f"the Gram apply takes d <= {MAX_D} and C < 2**31, got d={d}, C={c}")
     n = signs.shape[0] if signs.dim() == 3 else -1
     _f32("v", v, (c, d))
     s_pc = _per_chunk("signs", signs, n, c)
-    m_pc = _per_chunk("mask", mask, n, c)
     _f32("signs", signs, (n, signs.shape[1], d))
-    _f32("mask", mask, (n, mask.shape[1], d))
-    check_cuda(v, signs, mask)
+    r_pc = _per_chunk("rows", rows, n, c)
+    if rows.dtype != torch.int64:
+        raise ValueError(f"rows must be int64, got {rows.dtype}")
+    return c, d, n, rows.shape[2], s_pc, r_pc
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it when its data is not 16-byte aligned (the K4
+    kernels read v and the signs 16 bytes at a time)."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def srht_gram_apply_cuda(v: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, *,
+                         scale: float) -> torch.Tensor:
+    """``S v = sum_i scale * s_i * H (m_i * H (s_i * v))``, m_i the 0/1
+    indicator of rows_i.
+
+    v: (C, d) float32; signs: (n, C|1, d) float32; rows: (n, C|1, k) int64.
+    -> (C, d) float32."""
+    c, d, n, k, s_pc, r_pc = _draws(v, signs, rows)
+    check_cuda(v, signs, rows)
+    v, signs = _aligned16(v), _aligned16(signs)
     out = torch.empty((c, d), dtype=torch.float32, device=v.device)
     _build.launch(
-        "srht_fused", "srht_gram_apply_f32", v.data_ptr(), signs.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), n, c, d, int(s_pc), int(m_pc), scale, stream_handle(v),
+        "srht_fused", "srht_gram_apply_f32", v.data_ptr(), signs.data_ptr(), rows.data_ptr(),
+        out.data_ptr(), n, c, d, k, int(s_pc), int(r_pc), scale, stream_handle(v),
     )
     LAUNCHES["srht_gram_apply"] += 1
     return out
+
+
+def _scalar_or_per_chunk(name: str, t: torch.Tensor, c: int) -> bool:
+    """True for a (C,) float32 tensor, False for a 0-dim one."""
+    if t.dtype != torch.float32 or tuple(t.shape) not in ((), (c,)) or not t.is_contiguous():
+        raise ValueError(f"{name} must be 0-dim or ({c},) float32, got {tuple(t.shape)} {t.dtype}")
+    return t.dim() == 1
+
+
+def srht_cg_step_cuda(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor, rs: torch.Tensor,
+                      done: torch.Tensor, c0: torch.Tensor, c1: torch.Tensor,
+                      tol2: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, *,
+                      scale: float) -> None:
+    """One CG iteration for (c0 I + c1 S) x = y in one launch, in place.
+
+    x, r, p: (C, d) float32, contiguous and 16-byte aligned, updated in place;
+    rs: (C, 1) float32 and done: (C, 1) bool, updated in place; tol2: (C, 1)
+    float32; c0, c1: 0-dim or (C,) float32; signs, rows as for
+    ``srht_gram_apply_cuda``. Chunks already done are not written."""
+    c, d, n, k, s_pc, r_pc = _draws(p, signs, rows)
+    for name, t in (("x", x), ("r", r), ("p", p)):
+        _f32(name, t, (c, d))
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    for name, t in (("rs", rs), ("tol2", tol2)):
+        _f32(name, t, (c, 1))
+    if tuple(done.shape) != (c, 1) or done.dtype != torch.bool:
+        raise ValueError(f"done must be ({c}, 1) bool, got {tuple(done.shape)} {done.dtype}")
+    c0_pc = _scalar_or_per_chunk("c0", c0, c)
+    c1_pc = _scalar_or_per_chunk("c1", c1, c)
+    check_cuda(x, r, p, rs, done, c0, c1, tol2, signs, rows)
+    signs = _aligned16(signs)
+    _build.launch(
+        "srht_fused", "srht_cg_step_f32", x.data_ptr(), r.data_ptr(), p.data_ptr(),
+        rs.data_ptr(), done.data_ptr(), c0.data_ptr(), c1.data_ptr(), tol2.data_ptr(),
+        signs.data_ptr(), rows.data_ptr(), n, c, d, k, int(c0_pc), int(c1_pc), int(s_pc),
+        int(r_pc), scale, stream_handle(p),
+    )
+    LAUNCHES["srht_cg_step"] += 1

@@ -203,11 +203,24 @@ def test_ops_plain_paths():
     assert torch.allclose(lhs, rhs, rtol=1e-5)
 
 
+def _cg_step_case(x, signs, rows, use_kernel):
+    """One in-place CG step from r = x[1], p = x[0] with chunk 0 frozen;
+    -> the new (x, r, p, rs, done)."""
+    x0, r, p = x[2].clone(), x[1].clone(), x[0].clone()
+    rs = tref.row_dot_ref(r, r)
+    done = torch.zeros(rs.shape, dtype=torch.bool, device=x.device)
+    done[0] = True
+    c1 = torch.full((x.shape[1],), 0.75, device=x.device)
+    tops.srht_cg_step(x0, r, p, rs, done, 1.0 - c1, c1, 1e-8 * rs, signs, rows,
+                      use_kernel=use_kernel)
+    return x0, r, p, rs, done
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
     """Each CUDA kernel against its plain version on the card, golden grid;
-    K1 and K3 also at d = 1024 and 2048 (one warp a row, and a row across
-    the warps of a block)."""
+    K1, K3, the Gram apply and the CG step also at d = 1024 and 2048 (one
+    warp a row, and a row across the warps of a block)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     rng = np.random.default_rng(5)
@@ -217,16 +230,16 @@ def test_cuda_kernels_match_plain_versions():
         x = torch.from_numpy(_ints(rng, (n, c, d))).to(dev)
         signs = torch.from_numpy(_signs(rng, (n, 1, d))).to(dev)
         rows = torch.from_numpy(_rows(rng, (n, 1), k, d)).long().to(dev)
-        mask = tref.srht_scatter_ref(torch.ones(rows.shape, device=dev), rows, d)
         cases = [
             lambda u: tops.srht_encode(x[0], signs[0, 0], rows[0, 0], use_kernel=u),
             lambda u: tops.srht_decode_sum(x[..., :k].contiguous(), signs, rows, d, use_kernel=u),
+            lambda u: tops.srht_gram_apply(x[0], signs, rows, use_kernel=u),
+            lambda u: torch.cat([t.float().flatten() for t in _cg_step_case(x, signs, rows, u)]),
         ]
         if d == 512:
             cases += [
                 lambda u: tops.srht_encode_batch(x, signs.expand(n, c, d), rows.expand(n, c, k),
                                                  use_kernel=u),
-                lambda u: tops.srht_gram_apply(x[0], signs, mask, use_kernel=u),
             ]
         for case in cases:
             assert torch.equal(case("force"), case("never"))

@@ -58,7 +58,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
         collectives.compressed_mean_tree(codec.RandProjSpatial(k=8, d_block=64), 0, tree)
 
 
-def _op_calls(x, v, signs, rows, mask):
+def _op_calls(x, v, signs, rows):
     kv = x[:1]  # one kv head for the two q rows: rep 2
     return {
         "flash_attention": lambda u: ops.flash_attention(x[:, :2], kv, kv, rep=2, window=2,
@@ -71,12 +71,23 @@ def _op_calls(x, v, signs, rows, mask):
             x, signs.expand(2, 3, 16), rows.expand(2, 3, 4), use_kernel=u),
         "srht_decode_sum": lambda u: ops.srht_decode_sum(x[..., :4], signs, rows, 16,
                                                          use_kernel=u),
-        "srht_gram_apply": lambda u: ops.srht_gram_apply(v, signs, mask, use_kernel=u),
+        "srht_gram_apply": lambda u: ops.srht_gram_apply(v, signs, rows, use_kernel=u),
+        "srht_cg_step": lambda u: _cg_step(v, signs, rows, u),
     }
 
 
-_OPS = ["flash_attention", "fwht", "srht_encode", "srht_decode", "srht_encode_batch", "srht_decode_sum",
-        "srht_gram_apply"]
+def _cg_step(v, signs, rows, use_kernel):
+    """One in-place CG step from x = 0, r = p = v; -> the new state, stacked."""
+    x, r, p = torch.zeros_like(v), v.clone(), v.clone()
+    rs = (v * v).sum(-1, keepdim=True)
+    done = torch.zeros(rs.shape, dtype=torch.bool)
+    ops.srht_cg_step(x, r, p, rs, done, torch.tensor(0.5), torch.tensor(0.5), 1e-8 * rs, signs,
+                     rows, use_kernel=use_kernel)
+    return torch.cat([x, r, p, rs, done.float()], dim=1)
+
+
+_OPS = ["flash_attention", "fwht", "srht_encode", "srht_decode", "srht_encode_batch",
+        "srht_decode_sum", "srht_gram_apply", "srht_cg_step"]
 
 
 @pytest.mark.parametrize("op", _OPS)
@@ -84,8 +95,7 @@ def test_force_on_cpu_tensor_raises(op):
     x = torch.randn(2, 3, 16)
     signs = torch.ones(2, 1, 16)
     rows = torch.arange(4).expand(2, 1, 4)
-    mask = torch.zeros(2, 1, 16)
-    call = _op_calls(x, x[0], signs, rows, mask)[op]
+    call = _op_calls(x, x[0], signs, rows)[op]
     with pytest.raises(RuntimeError, match="force"):
         call("force")
     assert torch.equal(call("auto"), call("never"))

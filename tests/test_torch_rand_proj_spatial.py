@@ -24,6 +24,7 @@ from repro_torch.core import beta as tbeta
 from repro_torch.core import codec as tcodec
 from repro_torch.core import random as prand
 from repro_torch.core.estimators import rand_proj_spatial as trps
+from repro_torch.kernels import ref as kref
 
 N, C, D, K, TRIALS = 4, 3, 64, 8, 64
 BETA_EPS = (0.0, 1e-2)
@@ -88,12 +89,13 @@ def jax_side():
         betas = {eps: jax.vmap(jbeta.beta_fn_from_bank(bank, N, D, eps=eps))(BETA_RHOS)
                  for eps in BETA_EPS}
         rks = jax.vmap(lambda r: jbeta.rand_k_spatial_beta(N, K, D, r))(BETA_RHOS)
-        return out, betas, rks
+        row_dot = jnp.sum(x * x, axis=-1, keepdims=True)  # as the CG's dot products
+        return out, betas, rks, row_dot
 
     with _cheap_compiles():
         bank = np.asarray(jbeta.srht_eig_bank(N, K, D, TRIALS))
-        out, betas, rks = jax.tree.map(np.asarray, jax.jit(everything)(jnp.asarray(xs)))
-    out.update(xs=xs, bank=bank, beta=betas, rand_k_spatial_beta=rks)
+        out, betas, rks, row_dot = jax.tree.map(np.asarray, jax.jit(everything)(jnp.asarray(xs)))
+    out.update(xs=xs, bank=bank, beta=betas, rand_k_spatial_beta=rks, row_dot=row_dot)
     return out
 
 
@@ -195,6 +197,38 @@ def test_cg_host_check_interval_changes_no_bits(monkeypatch):
     assert torch.equal(every8, every1)
     assert torch.equal(every8[1], torch.zeros(D))
     assert torch.isfinite(every8).all()
+
+
+def test_row_dot_matches_jax_sum(jax_side):
+    """The CG's fixed-order row dot product against jnp.sum's (whose order is
+    XLA's): equal to float rounding."""
+    xs = torch.from_numpy(jax_side["xs"])
+    got = kref.row_dot_ref(xs, xs)
+    assert got.shape == (N, C, 1)
+    np.testing.assert_allclose(got.numpy(), jax_side["row_dot"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_chunk"])
+def test_cg_step_ref_looped_is_the_solve(shared):
+    """``srht_cg_step_ref`` run for every one of cg_iters iterations, with no
+    host check, gives the solve's bits (chunks done early stay frozen), with
+    one rho for every chunk or one per chunk; a zero chunk stays exactly 0."""
+    rng = np.random.default_rng(6)
+    _, ts = _specs(shared)
+    draws = trps._fused_draws(ts, 3, N, C, device="cpu")
+    signs, rows = draws["signs"], draws["rows"]
+    y = torch.from_numpy(rng.standard_normal((C, D)).astype(np.float32))
+    y[1] = 0.0
+    rho = torch.tensor(0.6) if shared else torch.tensor([0.3, 0.6, 0.9])
+    got, it = trps._cg_resolvent_solve(y, rho, 0.01, signs, rows, ts.cg_iters)
+    ys = kref.row_dot_ref(y, y)
+    state = (torch.zeros_like(y), y, y, ys, ys <= 1e-8 * ys)
+    mask = kref.srht_scatter_ref(torch.ones(rows.shape), rows, D)
+    for _ in range(ts.cg_iters):
+        state = kref.srht_cg_step_ref(*state, 1.0 - rho + 0.01, rho, 1e-8 * ys, signs, mask)
+    assert torch.equal(got, state[0])
+    assert bool(state[4].all()) and 0 < int(it) < ts.cg_iters
+    assert torch.equal(got[1], torch.zeros(D))
 
 
 def test_unbiased_with_own_draws_and_bank():
