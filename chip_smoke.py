@@ -31,7 +31,7 @@ result):
 6. a small tree through the kernels on the card and through the plain
    versions on the CPU, which draw the same maps (relative L2 <= 1e-4);
 7. the flash-attention kernel (K5) against its plain version on the card,
-   both routes (bf16: the tensor-core kernel; float32: the CUDA-core one),
+   both routes (bf16: the wgmma kernel; float32: the split-TF32 one),
    on a grid (rep 1/2; window 0/8/64/1024; q_offset 0/384 with Sq < Sk;
    d_head 64/128/256; Sq 1/100/128/129/200 against 128-row q tiles, ragged
    Sk; float32 within 2e-5, or 3e-5 / 1e-4 with a window or an offset,
@@ -42,15 +42,19 @@ result):
    random from a fixed seed, float32 on the card, bf16 compute) with
    ``attn_impl="flash"`` serves 4 prompts of 2048 tokens and decodes 32
    greedy tokens through ``launch.serve.serve``. Launch counts are zeroed
-   just before and read just after: the bf16 route of K5 (the tensor-core
+   just before and read just after: the bf16 route of K5 (the wgmma
    kernel) must have launched 34 times, once per attention layer of the
    prefill, and the float32 route never. The prefill is re-run through the
    plain versions on the card (last-position logits within relative L2 5e-2
-   in bf16). Then ``serve`` runs once more in float32 (2 tokens), counts
-   zeroed around it: the float32 route must have launched 34 times, and its
-   logits must be within 1e-4 of the plain path's. One more bf16 prefill is
+   in bf16), and once more for each of four roundings of the bf16 kernel
+   put into the plain attention (none, exp2, P split, P in bf16), whose
+   gaps to the plain path tell the bf16 gap's causes apart. Then ``serve``
+   runs once more in float32 (2 tokens), counts zeroed around it: the
+   float32 route must have launched 34 times, and its logits must be within
+   1e-4 of the plain path's; three warm prefills in float32 and three in
+   bf16 are timed (host clock, median). One more bf16 prefill is
    profiled (device time by kernel, K5's share, idle share; every K5 launch
-   in it must be the tensor-core kernel);
+   in it must be the wgmma kernel);
 9. tiny gemma (float32) through the kernel on the card and the plain
    versions on the CPU, with the same weights: logits within relative L2
    1e-4 and equal greedy tokens over 8 decode steps;
@@ -61,12 +65,16 @@ result):
    step beside its bound and the unfused path it replaced (K4 alone plus
    the step's updates as PyTorch ops; no one PyTorch call computes a CG
    step); K5's two routes both at the serve shape, each with its bound
-   share and achieved TFLOP/s; print them as one JSON line.
+   share and achieved TFLOP/s; print them as one JSON line. The float32
+   route's bound counts its operations at split TF32's 495 / 3 = 165
+   TFLOP/s, the faster of the card's two float32-accurate rates
+   (``bound_ms``), and also at the CUDA cores' 67 TFLOP/s
+   (``bound_ms_cuda_cores``, the bound a CUDA-core kernel would face).
 
 The build phase prints ``-Xptxas -v``'s registers, shared memory and
-spills for K5's tensor-core kernel and for the butterfly kernels of K1,
-K3 and both K4 entries (one entry a width and dtype) and fails if any of
-them spills.
+spills for both K5 kernels (one entry a padded d_head each) and for the
+butterfly kernels of K1, K3 and both K4 entries (one entry a width and
+dtype) and fails if any of them spills.
 
 The last line is {"ok": true, "device": {...}}. Needs one card; exits 1
 without CUDA or outside a checkout of the repository.
@@ -90,6 +98,7 @@ DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+SPLIT_TF32_OPS_PER_S = 495e12 / 3  # TF32 tensor cores, dense, three products a float32 one
 N_CLIENTS, K, D_BLOCK, RHO = 4, 64, 1024, 0.9
 
 # mamba2-130m (src/repro/configs/mamba2_130m.py): its parameter tree, as
@@ -129,7 +138,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                             "src/repro/kernels/flash_attention.py:77"),
 }
 FLASH_ROUTES = {torch.bfloat16: "flash_attention_bf16", torch.float32: "flash_attention_f32"}
-TC_KERNEL = "flash_attention_kernel_bf16_wgmma"  # K5's tensor-core kernel in a profile
+TC_KERNEL = "flash_attention_kernel_bf16_wgmma"  # K5's bf16 kernel in a profile
+# K5's two kernels by source: function name, entries in ptxas's output (one a padded d_head)
+FLASH_KERNELS = {"flash_attention_tc": ("flash_attention_kernel_bf16_wgmma", 3),
+                 "flash_attention": ("flash_attention_kernel_f32_tf32", 3)}
 # the register-resident butterfly kernels (K1, K3, K4's two entries), by
 # function name, and their entries in ptxas's output (one a width and dtype)
 BUTTERFLY_KERNELS = {"fwht": ("fwht", "fwht_butterfly_kernel", 30),
@@ -224,14 +236,16 @@ def phase_build() -> None:
     _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc, {len(_build.SOURCES)} sources in parallel)")
-    info = _build.ptxas_info("flash_attention_tc")
     smem = {dhp: _build.build()["flash_attention_tc"].flash_attention_bf16_wgmma_smem(dhp)
             for dhp in (64, 128, 256)}
-    log("ptxas, K5's tensor-core kernel (one entry per padded d_head):\n" + info.rstrip()
-        + f"\ndynamic shared memory a block, by padded d_head: {smem} bytes")
-    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
-    if "Used" not in info or not spills or any(int(a) or int(b) for a, b in spills):
-        fail(f"K5's tensor-core kernel: no register count, or spills, in ptxas's output {spills}")
+    for source, (kernel, n_entries) in FLASH_KERNELS.items():
+        info = _build.ptxas_info(source)
+        log(f"ptxas, K5's {kernel} (one entry per padded d_head):\n" + info.rstrip())
+        entries = _ptxas_entries(info, kernel)
+        if len(entries) != n_entries or any(st or ld for _, _, st, ld in entries):
+            fail(f"{kernel}: {len(entries)} entries of {n_entries} in ptxas's output, or spills: "
+                 f"{[(n[:80], st, ld) for n, _, st, ld in entries]}")
+    log(f"K5 bf16: dynamic shared memory a block, by padded d_head: {smem} bytes")
     for source in sorted({source for source, _, _ in BUTTERFLY_KERNELS.values()}):
         log(f"ptxas, {source}.cu:\n" + _build.ptxas_info(source).rstrip())
     for name, (source, kernel, n_entries) in BUTTERFLY_KERNELS.items():
@@ -765,12 +779,41 @@ def _greedy(params, cfg, prompts, steps: int, use_kernel: str = "auto"):
     return torch.cat(toks, 1), torch.stack(all_logits)
 
 
+def _plain_attention_rounded(kind: str):
+    """The plain attention with one of the bf16 kernel's roundings put in,
+    to tell the bf16 logits gap's causes apart. All kinds exponentiate the
+    masked scores less their row max and divide P V by P's row sum at the
+    end, as the kernel does; "none" changes nothing else (a float32-level
+    change only: the gap any reordering reaches); "exp2" scales the scores
+    by log2(e) / sqrt(dh) and takes exp2, the kernel's exponent path;
+    "p_split" carries P as bf16(P) + bf16(P - bf16(P)), the kernel's P;
+    "p_bf16" rounds P to bf16, the kernel's P before the split."""
+    def attn(q, k, v, *, rep, window=0, q_offset=0):
+        sq, dh = q.shape[1], q.shape[2]
+        k = torch.repeat_interleave(k, rep, dim=0).float()
+        v = torch.repeat_interleave(v, rep, dim=0).float()
+        s = torch.einsum("nqd,nkd->nqk", q.float(), k)
+        q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+        k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+        mask = k_pos <= q_pos
+        if window > 0:
+            mask &= q_pos - k_pos < window
+        scale = (1.4426950408889634 if kind == "exp2" else 1.0) / np.sqrt(dh)
+        t = torch.where(mask[None], s * scale, -torch.inf)
+        p = (torch.exp2 if kind == "exp2" else torch.exp)(t - t.amax(-1, keepdim=True))
+        if kind in ("p_split", "p_bf16"):
+            hi = p.bfloat16().float()
+            p = hi + (p - hi).bfloat16().float() if kind == "p_split" else hi
+        return (torch.einsum("nqk,nkd->nqd", p, v) / p.sum(-1, keepdim=True)).to(q.dtype)
+    return attn
+
+
 def phase_serve() -> dict:
     """gemma3-4b at full width through launch.serve.serve: K5 must launch
     once per attention layer of the prefill; the prefill's last-position
     logits against the plain versions on the card in bf16 and float32."""
     from repro_torch import configs
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.launch import serve
     from repro_torch.models import transformer
 
@@ -794,7 +837,7 @@ def phase_serve() -> dict:
     torch.cuda.synchronize()
     launches = ops.launch_counts()  # ... and closes here
     if launches != {"flash_attention_bf16": cfg.n_layers}:
-        fail(f"the serving path launched {launches}, not K5's tensor-core kernel "
+        fail(f"the serving path launched {launches}, not K5's bf16 kernel "
              f"(flash_attention_bf16) x {cfg.n_layers}")
     tokens, logits = res["tokens"], res["prefill_logits"][:, -1]
     if tokens.shape != (SERVE_BATCH, SERVE_GEN) or not torch.isfinite(logits).all():
@@ -806,6 +849,15 @@ def phase_serve() -> dict:
     plain_tok, plain = _greedy(params, cfg, prompts, 0, "never")
     gap_bf16 = rel_l2(logits, plain[0])
     first_same = bool(torch.equal(tokens[:, :1], plain_tok))
+    # the same gap for the plain path with one of the kernel's roundings in it
+    gap_rounded = {}
+    for kind in ("none", "exp2", "p_split", "p_bf16"):
+        plain_attention, ref.flash_attention_ref = ref.flash_attention_ref, \
+            _plain_attention_rounded(kind)
+        try:
+            gap_rounded[kind] = rel_l2(_greedy(params, cfg, prompts, 0, "never")[1][0], plain[0])
+        finally:
+            ref.flash_attention_ref = plain_attention
     del plain
 
     # serving in float32: the float32 route of K5, counted the same way
@@ -825,22 +877,27 @@ def phase_serve() -> dict:
     first_same32 = bool(torch.equal(res32["tokens"][:, :1], p32_tok))
     del res32, p32
 
-    # warm prefill wall time, host clock around a synchronised call
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _greedy(params, cfg, prompts, 0)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
+    # warm prefill wall times, host clock around a synchronised call
+    walls = {}
+    for c in (cfg32, cfg):
+        walls[c.dtype] = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _greedy(params, c, prompts, 0)
+            torch.cuda.synchronize()
+            walls[c.dtype].append((time.perf_counter() - t0) * 1e3)
     out = {
         "launches": launches, "launches_f32_serving": launches_f32,
         "tokens_request0": tokens[0].tolist(),
         "prefill_ms_first": res["prefill_s"] * 1e3,
-        "prefill_ms_warm_median3": statistics.median(walls),
+        "prefill_ms_warm_median3": statistics.median(walls[cfg.dtype]),
+        "prefill_ms_f32_warm_median3": statistics.median(walls["float32"]),
+        "prefill_ms_f32_warm": walls["float32"],
         "decode_ms_per_step": res["decode_s"] * 1e3 / (SERVE_GEN - 1),
         "decode_tokens_per_s": SERVE_BATCH * (SERVE_GEN - 1) / res["decode_s"],
         "logits_gap_bf16": gap_bf16, "first_tokens_agree_bf16": first_same,
+        "logits_gap_bf16_plain_rounded": gap_rounded,
         "logits_gap_f32": gap_f32, "first_tokens_agree_f32": first_same32,
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
@@ -871,7 +928,7 @@ def phase_serve_profile(params, cfg, prompts) -> dict:
     k5_tc_launches = sum(counts[name] for name in k5 if TC_KERNEL in name)
     if k5_ms <= 0 or k5_tc_launches != k5_launches or k5_launches != cfg.n_layers:
         fail(f"the profiled prefill ran K5 as {dict((n[:120], counts[n]) for n in k5)}, not the "
-             f"tensor-core kernel x {cfg.n_layers}")
+             f"bf16 kernel x {cfg.n_layers}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {"wall_ms": wall_ms, "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
            "k5_ms": k5_ms, "k5_share_of_device": k5_ms / device_ms,
@@ -1047,15 +1104,17 @@ def _flash_pairs(sq: int, sk: int, window: int) -> int:
 def phase_flash_timing(inp: dict, launches: dict, errs: Errors) -> list:
     """K5's two routes at the serve shape, windowed and global: kernel,
     plain version, bound, and scaled_dot_product_attention on K/V repeated
-    beforehand. bf16 runs the tensor-core kernel, float32 (the same inputs)
-    the CUDA-core one. Each entry's figures are per launch, weighted as the
+    beforehand. bf16 runs the wgmma kernel, float32 (the same inputs) the
+    split-TF32 one. Each entry's figures are per launch, weighted as the
     prefill runs them (29 windowed, 5 global); ``launches`` is each route's
-    count from its serving run."""
+    count from its serving run. The float32 bound is its operations at
+    split TF32's rate; ``bound_ms_cuda_cores`` keeps them at the CUDA
+    cores' rate, the bound a CUDA-core kernel would face."""
     from repro_torch.kernels import ops
 
     out = []
     for dtype, peak, lib_tol in ((torch.bfloat16, BF16_OPS_PER_S, 2e-2),
-                                 (torch.float32, F32_OPS_PER_S, 1e-4)):
+                                 (torch.float32, SPLIT_TF32_OPS_PER_S, 1e-4)):
         name = FLASH_ROUTES[dtype]
         q, k, v = (inp[key].to(dtype) for key in ("q", "k", "v"))
         n_q, sq, dh = q.shape
@@ -1092,12 +1151,21 @@ def phase_flash_timing(inp: dict, launches: dict, errs: Errors) -> list:
                 "bound_share": max(t_bytes, t_ops) / ms, "tflops": n_ops / ms / 1e9,
                 "gflop": n_ops / 1e9, "mbytes": n_bytes / 1e6, "library_rel_gap": gap,
             }
+            if dtype == torch.float32:
+                cuda_cores = max(t_bytes, n_ops / F32_OPS_PER_S * 1e3)
+                per_window[window].update(bound_ms_cuda_cores=cuda_cores,
+                                          bound_share_cuda_cores=cuda_cores / ms)
             log(f"{name} window={window}: " + json.dumps(per_window[window]))
         del q, k, v, q4, k_rep, v_rep
         weights = SERVE_WINDOWS
         total = sum(weights.values())
+        keys = ["ms", "plain_ms", "library_ms", "bound_ms", "tflops"]
+        if dtype == torch.float32:
+            keys.append("bound_ms_cuda_cores")
         mean = {key: sum(per_window[w][key] * c for w, c in weights.items()) / total
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "tflops")}
+                for key in keys}
+        if dtype == torch.float32:
+            mean["bound_share_cuda_cores"] = mean["bound_ms_cuda_cores"] / mean["ms"]
         bound_by = {per_window[w]["bound_by"] for w in weights}
         out.append({
             "name": name, "route": "cuda", "source": KERNELS[name][0],

@@ -5,7 +5,7 @@
 //
 // with query i at absolute position q_offset + i, key j allowed when
 // j <= q_offset + i (and q_offset + i - j < window when window > 0). bf16 in,
-// bf16 out. float32 inputs take the CUDA-core kernel of flash_attention.cu;
+// bf16 out. float32 inputs take the split-TF32 kernel of flash_attention.cu;
 // this kernel takes bf16 only.
 //
 // Numerics against the Pallas body, which casts q, k, v to f32 and multiplies
@@ -17,9 +17,13 @@
 //   before it): exact for dh 64 and 256, one f32 rounding apart otherwise.
 //   log2(e) is folded into that scale, so the exponentials are exp2 (ex2.approx).
 // - Masked scores are -1e9 and p is 0 where masked; m and l are f32.
-// - P is rounded to bf16 for the P V product (bf16 x bf16 -> f32), the one
-//   real numerical change; l sums the same rounded values that enter the
-//   product, so each output row is a convex combination of V's rows.
+// - P (f32) enters the P V product as two bf16 values, P_hi = bf16(P) and
+//   P_lo = bf16(P - P_hi), which carry about 16 significant bits of it
+//   (|P - P_hi - P_lo| <= 2^-16 P): two bf16 x bf16 -> f32 products into
+//   the same accumulator, P_lo V first, then P_hi V. The Pallas body
+//   multiplies an f32 P by V; V is bf16 on both sides. l sums P_hi + P_lo,
+//   the values that enter the product, so each output row is a convex
+//   combination of V's rows.
 // - The output is acc / max(l, 1e-30), rounded to bf16.
 //
 // Bound on an H100 at the serve shape (gemma3-4b prefill, q (32, 2048, 256),
@@ -40,9 +44,10 @@
 //   K-major), the mask on tiles that the diagonal, the window edge or Sk
 //   cross, the online softmax in registers on the accumulator's layout (each
 //   thread holds two rows; the row max and sum are quad shuffles), then
-//   O += P V by wgmma with P from registers (the RS form) and V from shared
-//   memory with the transpose bit (V is stored MN-major). A tile none of
-//   a warpgroup's rows reaches is waited for and released, not computed.
+//   O += P V by two wgmmas a 16-key step (P_lo, then P_hi) with P from
+//   registers (the RS form) and V from shared memory with the transpose bit
+//   (V is stored MN-major). A tile none of a warpgroup's rows reaches is
+//   waited for and released, not computed.
 // - setmaxnreg moves registers from the producer (24) to the consumers (240).
 // Loads are TMA copies of 3-D tensor maps over (dh, S, N) in boxes of 64
 // columns (128 bytes) with the 128-byte swizzle that the wgmma descriptors
@@ -60,17 +65,15 @@
 //   DHP 128, BKV 128: Q 32 KB + 4 x 32 KB = 160 KB (164,928 bytes)
 //   DHP  64, BKV 128: Q 16 KB + 4 x 16 KB =  80 KB ( 83,008 bytes)
 // so one block a SM. Registers a consumer thread at DHP 256: O 64 x 256 f32
-// over 128 threads is 128, S 32, P 16 (bf16 pairs); ptxas (-Xptxas -v)
-// reports 168 a thread at entry and no spills at any DHP.
+// over 128 threads is 128, S 32, P_hi and P_lo 16 each (bf16 pairs); at
+// DHP 128, O 64, S 64, P_hi and P_lo 32 each. chip_smoke.py fails the build
+// if ptxas (-Xptxas -v) reports a spill at any DHP.
 //
 // Built with the other sources' flags, -fmad=false included: it touches no
 // wgmma, and the softmax's few scalar multiply-adds do not need contracting.
-// On an H100 (80GB HBM3, 700 W) at the serve shape it takes 0.165 ms with the
-// window and 0.184 ms causal, about a third of the tensor cores' peak
-// (chip_smoke.py; PERF.md).
-#include <cuda.h>
-
+// Its times on an H100 are in PERF.md (chip_smoke.py).
 #include "fwht_common.cuh"
+#include "tma_pipeline.cuh"
 
 namespace repro_torch {
 namespace fa_tc {
@@ -85,7 +88,6 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr float kNeg = -1e9f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr long long kWatchdogCycles = 1LL << 34;  // about 9 s: a wait this long is a fault
 
 template <int DHP>
 struct Tiles {
@@ -96,56 +98,6 @@ struct Tiles {
   static constexpr int kBarOffset = kQBytes + 2 * kStages * kKVBytes;
   static constexpr int kSmem = kBarOffset + 64 + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase with this parity has completed. A wait of seconds
-// means a fault in the pipeline: trap (an error on the host) rather than hang.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long start = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > kWatchdogCycles) {
-      __trap();
-    }
-  }
-}
-
-// One box of a 3-D tensor map (coordinates innermost first) into shared
-// memory; completion is counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
 
 // wgmma descriptor of a shared-memory operand in the 128-byte swizzle:
 // start address, leading and stride byte offsets in 16-byte units, layout
@@ -197,12 +149,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The same pair, its rounded values added to `sum`.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi, float& sum) {
-  const uint32_t bits = pack_bf16(lo, hi);
-  const float2 back = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits));
-  sum += back.x + back.y;
-  return bits;
+// (lo, hi) as P_hi + P_lo, two bf16 pairs (P_hi = bf16(P), P_lo =
+// bf16(P - P_hi)); the values that enter the product, P_hi + P_lo, are
+// added to `sum`.
+__device__ __forceinline__ void split_bf16(float lo, float hi, uint32_t& p_hi, uint32_t& p_lo,
+                                           float& sum) {
+  p_hi = pack_bf16(lo, hi);
+  const float2 big = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&p_hi));
+  p_lo = pack_bf16(lo - big.x, hi - big.y);
+  const float2 small = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&p_lo));
+  sum += (big.x + small.x) + (big.y + small.y);
 }
 
 // m64nNk16 bf16 -> f32 wgmma. Accumulator layout (thread t of the warpgroup,
@@ -402,7 +358,7 @@ flash_attention_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(bar_v + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -507,10 +463,10 @@ flash_attention_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
         m0 = mn0;
         m1 = mn1;
 
-        // P = exp2(t - m) (0 where masked) as bf16 pairs in the A-operand
-        // layout of m64k16: for step kk, columns 16 kk .. 16 kk + 15 are
-        // accumulator registers 8 kk .. 8 kk + 7
-        uint32_t pa[BKV / 16][4];
+        // P = exp2(t - m) (0 where masked) as P_hi + P_lo, bf16 pairs in the
+        // A-operand layout of m64k16: for step kk, columns 16 kk .. 16 kk + 15
+        // are accumulator registers 8 kk .. 8 kk + 7
+        uint32_t pa_hi[BKV / 16][4], pa_lo[BKV / 16][4];
         float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
         for (int kk = 0; kk < BKV / 16; ++kk) {
@@ -521,23 +477,26 @@ flash_attention_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
             const float mrow = (j & 2) ? mn1 : mn0;
             p[e] = ((ok[j >> 5] >> (j & 31)) & 1u) ? ex2(sc[j] - mrow) : 0.f;
           }
-          pa[kk][0] = pack_bf16(p[0], p[1], rs0);
-          pa[kk][1] = pack_bf16(p[2], p[3], rs1);
-          pa[kk][2] = pack_bf16(p[4], p[5], rs0);
-          pa[kk][3] = pack_bf16(p[6], p[7], rs1);
+          split_bf16(p[0], p[1], pa_hi[kk][0], pa_lo[kk][0], rs0);
+          split_bf16(p[2], p[3], pa_hi[kk][1], pa_lo[kk][1], rs1);
+          split_bf16(p[4], p[5], pa_hi[kk][2], pa_lo[kk][2], rs0);
+          split_bf16(p[6], p[7], pa_hi[kk][3], pa_lo[kk][3], rs1);
         }
         l0 = l0 * corr0 + quad_sum(rs0);
         l1 = l1 * corr1 + quad_sum(rs1);
 #pragma unroll
         for (int j = 0; j < DHP / 2; ++j) acc[j] *= (j & 2) ? corr1 : corr0;
 
-        // O += P V: BKV / 16 steps of 16 keys (2048 bytes of V each)
+        // O += P V: BKV / 16 steps of 16 keys (2048 bytes of V each), each
+        // P_lo V, then P_hi V
         mbar_wait(bar_v + 8 * s, parity);
         fence_regs(acc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BKV / 16; ++kk) {
-          Wgmma<DHP>::rs(acc, pa[kk], sw128_desc(v_st + kk * 16 * 128, BKV * 128, 1024), 1);
+          const uint64_t desc = sw128_desc(v_st + kk * 16 * 128, BKV * 128, 1024);
+          Wgmma<DHP>::rs(acc, pa_lo[kk], desc, 1);
+          Wgmma<DHP>::rs(acc, pa_hi[kk], desc, 1);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -578,50 +537,6 @@ flash_attention_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// cuTensorMapEncodeTiled is a driver-API function; the library links only the
-// runtime, so it is reached through the runtime's driver entry point.
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A contiguous (heads, rows, dh) bf16 tensor as a 3-D map over (dh, rows,
-// heads), read in boxes of 64 columns x box_rows rows x 1 head with the
-// 128-byte swizzle; what lies past dh or past rows reads as zero.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int dh, int rows, int heads,
-                     int box_rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {2ull * dh, 2ull * dh * rows};  // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult res =
-      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int DHP>
 int launch_dhp(const void* q, const void* k, const void* v, void* o, int n_q, int sq, int sk,
                int dh, int rep, int window, int q_offset, float scale, void* stream) {
@@ -629,9 +544,10 @@ int launch_dhp(const void* q, const void* k, const void* v, void* o, int n_q, in
   const int n_qt = (sq + kBQ - 1) / kBQ;
   if (n_qt > 65535) return cudaErrorInvalidValue;
   CUtensorMap map_q, map_k, map_v;
-  cudaError_t err = make_map(&map_q, q, dh, sq, n_q, kBQ);
-  if (err == cudaSuccess) err = make_map(&map_k, k, dh, sk, n_q / rep, T::kBKV);
-  if (err == cudaSuccess) err = make_map(&map_v, v, dh, sk, n_q / rep, T::kBKV);
+  constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  cudaError_t err = make_map(&map_q, kBf16, 2, q, dh, sq, n_q, kBQ);
+  if (err == cudaSuccess) err = make_map(&map_k, kBf16, 2, k, dh, sk, n_q / rep, T::kBKV);
+  if (err == cudaSuccess) err = make_map(&map_v, kBf16, 2, v, dh, sk, n_q / rep, T::kBKV);
   if (err == cudaSuccess) err = prepare_smem(flash_attention_kernel_bf16_wgmma<DHP>, T::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_q, n_qt);

@@ -3,17 +3,20 @@
 
 - bfloat16: ``csrc/flash_attention_tc.cu``, on the tensor cores (``wgmma``,
   K/V tiles loaded by TMA; 128 query rows by 64 keys at d_head 256, by 128
-  keys at d_head <= 128), P rounded to bf16 for the P V product;
-- float32: ``csrc/flash_attention.cu``, float32 FMAs on the CUDA cores (64
-  query rows by 64 keys), which the float32 tolerances need (the tensor
-  cores would run float32 as TF32).
+  keys at d_head <= 128), P carried into the P V product as P_hi + P_lo, two
+  bf16 values (about 16 significant bits);
+- float32: ``csrc/flash_attention.cu``, on the tensor cores in split TF32
+  (``mma.sync``; each float32 operand as hi + lo, two TF32 values, three
+  products a pair, which keeps the float32 tolerances that plain TF32 would
+  break), K/V tiles loaded by TMA, P kept in registers.
 
 ``flash_attention_cuda`` checks shapes, dtypes, alignment and devices,
 allocates the output and launches on PyTorch's current stream. There is no
-fallback: a bf16 tensor launches the tensor-core kernel or raises, never
-the float32 kernel or the plain version. The kernels pick their own tiles,
-so the Pallas kernel's ``q_tile`` / ``kv_tile`` have no counterpart here,
-and Sq and Sk need not be multiples of anything. ``LAUNCHES`` counts the
+fallback: a bf16 tensor launches the bf16 kernel or raises, a float32 tensor
+the float32 kernel or raises, never the other route or the plain version.
+The kernels pick their own tiles, so the Pallas kernel's ``q_tile`` /
+``kv_tile`` have no counterpart here, and Sq and Sk need not be multiples
+of anything. ``LAUNCHES`` counts the
 launches of each route (``flash_attention_bf16``, ``flash_attention_f32``).
 """
 from __future__ import annotations
@@ -65,7 +68,7 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rep: int, wi
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, rep: int,
                          window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """Causal GQA attention; q (N_q, Sq, dh), k and v (N_kv, Sk, dh), all
-    bf16 (the tensor-core kernel) or all float32 (the CUDA-core kernel),
+    bf16 (the wgmma kernel) or all float32 (the split-TF32 kernel),
     contiguous, 16-byte aligned, on one CUDA device. -> (N_q, Sq, dh) in
     q's dtype. Raises ValueError on anything else."""
     check_shapes(q, k, v, rep, window, q_offset)

@@ -14,9 +14,9 @@ On a CUDA tensor there is no fallback: a build or launch failure raises.
 (csrc/fwht.cu); ``srht_encode_batch``, ``srht_decode_sum``,
 ``srht_gram_apply`` and ``srht_cg_step`` the fused kernels
 (csrc/srht_fused.cu);
-``flash_attention`` a flash-attention kernel chosen by dtype: bf16 the
-tensor-core kernel (csrc/flash_attention_tc.cu), float32 the CUDA-core one
-(csrc/flash_attention.cu).
+``flash_attention`` a flash-attention kernel chosen by dtype, both on the
+tensor cores: bf16 the wgmma kernel (csrc/flash_attention_tc.cu), float32
+the split-TF32 one (csrc/flash_attention.cu).
 """
 from __future__ import annotations
 
@@ -188,9 +188,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, rep: i
     head = q head // rep, optional sliding ``window``, queries at positions
     ``q_offset + i``. -> (N_q, Sq, dh) in q's dtype.
 
-    On CUDA tensors the route follows the dtype: bf16 runs the tensor-core
-    kernel (P rounded to bf16 for the P V product), float32 the CUDA-core
-    kernel (float32 throughout), and there is no fallback between them or
+    On CUDA tensors the route follows the dtype: bf16 runs the wgmma kernel
+    (P carried as P_hi + P_lo, two bf16 values, into the P V product),
+    float32 the split-TF32 kernel (each float32 operand as two TF32 values,
+    three products a pair), and there is no fallback between them or
     to the plain version; any other dtype raises. The kernels pick their own
     tiles, so the Pallas wrapper's q_tile / kv_tile are not taken."""
     if _use_kernel(q, use_kernel):

@@ -7,12 +7,17 @@ oracle, on the same numpy inputs: rep 1 and 2, window 0 and 8, a q_offset
 with Sq < Sk, float32 within 2e-5 (3e-5 / 1e-4 with a window or an offset,
 the JAX package's own tolerances for its kernel) and bfloat16 within 2e-2.
 
-The bf16 route's CUDA kernel (csrc/flash_attention_tc.cu) rounds P to bf16
-for its P V product on the tensor cores. ``_tensor_core_emulation`` repeats
-that arithmetic in torch on the CPU; it is held against the Pallas kernel
-and the plain version at the same 2e-2, which puts the design's bf16 error
-on record here. The CUDA kernels themselves run only on the card: the last
-test holds both routes against the plain version there and skips elsewhere.
+The CUDA kernels run only on the card, so their arithmetic is repeated here
+in torch on the CPU and held against the Pallas kernel and the plain
+version at the same tolerances:
+
+- ``_tensor_core_emulation``: the bf16 route (csrc/flash_attention_tc.cu),
+  P carried as P_hi + P_lo, two bf16 values, into the P V product;
+- ``_split_tf32_emulation``: the float32 route (csrc/flash_attention.cu),
+  both products in split TF32 (three TF32 products a pair of operands).
+
+The last test holds both routes against the plain version on the card and
+skips elsewhere.
 """
 from __future__ import annotations
 
@@ -128,19 +133,15 @@ def test_plain_version_matches_oracle(name):
     np.testing.assert_allclose(_port(name, case), _jax_side()[1][name][1], atol=atol, rtol=rtol)
 
 
-def _tensor_core_emulation(q, k, v, *, rep, window=0, q_offset=0):
-    """The bf16 kernel's arithmetic (csrc/flash_attention_tc.cu) in torch:
-    S = Q K^T in float32 from bf16 inputs, the scale 1/sqrt(dh) and log2(e)
-    applied after the product (both rounded to float32 as the launcher
-    does), exp2, kv tiles of the kernel's width (64 keys at d_head > 128,
-    else 128), P rounded to bf16 for the P V product and l summing those
-    rounded values, the output acc / max(l, 1e-30) rounded to bf16."""
+def _online_softmax(q, k, v, *, rep, window, q_offset, bkv, scale_log2, scores, pv):
+    """The kernels' online softmax over kv tiles of ``bkv`` keys, in float32:
+    t = scores(q, k_tile) * scale_log2 (log2(e) folded into the scale), -1e9
+    where masked, m the running row max, p = exp2(t - m) (0 where masked),
+    ``pv(p, v_tile)`` -> (the P V product, the row sums of the P that entered
+    it), and the output acc / max(l, 1e-30) in float32."""
     n_q, sq, dh = q.shape
-    bkv = 64 if dh > 128 else 128
-    qf = q.float()
     kf = torch.repeat_interleave(k, rep, 0).float()
     vf = torch.repeat_interleave(v, rep, 0).float()
-    scale_log2 = float(np.float32(np.float32(1.0 / np.sqrt(dh)) * np.float32(np.log2(np.e))))
     pos = q_offset + torch.arange(sq)[:, None]
     m = torch.full((n_q, sq, 1), -1e9)
     l = torch.zeros((n_q, sq, 1))
@@ -151,14 +152,87 @@ def _tensor_core_emulation(q, k, v, *, rep, window=0, q_offset=0):
         ok = key <= pos
         if window:
             ok &= pos - key < window
-        t = torch.where(ok, torch.einsum("nqd,nkd->nqk", qf, kt) * scale_log2, -1e9)
+        t = torch.where(ok, scores(q.float(), kt) * scale_log2, -1e9)
         m_new = torch.maximum(m, t.amax(-1, keepdim=True))
-        p = torch.where(ok, torch.exp2(t - m_new), 0.0).to(torch.bfloat16).float()
+        p = torch.where(ok, torch.exp2(t - m_new), 0.0)
         corr = torch.exp2(m - m_new)
-        l = l * corr + p.sum(-1, keepdim=True)
-        acc = acc * corr + torch.einsum("nqk,nkd->nqd", p, vt)
+        prod, row_sum = pv(p, vt)
+        l = l * corr + row_sum
+        acc = acc * corr + prod
         m = m_new
-    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
+    return acc / l.clamp_min(1e-30)
+
+
+def _scale_log2(dh):
+    """1/sqrt(dh) times log2(e), each rounded to float32 as the launchers do."""
+    return float(np.float32(np.float32(1.0 / np.sqrt(dh)) * np.float32(np.log2(np.e))))
+
+
+def _split_bf16(x):
+    """x as hi + lo, two bf16 values: hi = bf16(x), lo = bf16(x - hi)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _tensor_core_emulation(q, k, v, *, rep, window=0, q_offset=0):
+    """The bf16 kernel's arithmetic (csrc/flash_attention_tc.cu) in torch:
+    S = Q K^T in float32 from bf16 inputs, the scale 1/sqrt(dh) and log2(e)
+    applied after the product (both rounded to float32 as the launcher
+    does), exp2, kv tiles of the kernel's width (64 keys at d_head > 128,
+    else 128), P split as P_hi + P_lo (two bf16 values) for the P V product,
+    P_lo V first, then P_hi V, l summing P_hi + P_lo, the output
+    acc / max(l, 1e-30) rounded to bf16."""
+    dh = q.shape[2]
+
+    def pv(p, vt):
+        hi, lo = _split_bf16(p)
+        return lo @ vt + hi @ vt, (hi + lo).sum(-1, keepdim=True)
+
+    out = _online_softmax(q, k, v, rep=rep, window=window, q_offset=q_offset,
+                          bkv=64 if dh > 128 else 128, scale_log2=_scale_log2(dh),
+                          scores=lambda qf, kt: qf @ kt.transpose(1, 2), pv=pv)
+    return out.to(torch.bfloat16)
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32 on the int32 view: round to nearest, ties away from
+    zero, to 10 mantissa bits (the low 13 bits cleared)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    """x as hi + lo, two TF32 values, as the kernel splits each fragment:
+    hi = tf32(x), lo = tf32(x - hi)."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _split_mm(a, b):
+    """a @ b in split TF32, the small terms first: lo hi, hi lo, hi hi. Each
+    product of two TF32 values is exact in float32; the sums are float32."""
+    a_hi, a_lo = _split_tf32(a)
+    b_hi, b_lo = _split_tf32(b)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def f32_kv_tile(dh):
+    """Keys per kv tile of the float32 kernel at this d_head: keep in step
+    with ``Pick`` in csrc/flash_attention.cu (the tile sets where the online
+    softmax rescales)."""
+    return 24 if dh > 128 else 64
+
+
+def _split_tf32_emulation(q, k, v, *, rep, window=0, q_offset=0):
+    """The float32 kernel's arithmetic (csrc/flash_attention.cu) in torch:
+    S = Q K^T in split TF32 from the unscaled float32 inputs, the scale
+    1/sqrt(dh) and log2(e) applied after the product, exp2, kv tiles of the
+    kernel's width, O += P V in split TF32 (P split like any operand), l
+    summing P in float32, the output acc / max(l, 1e-30) in float32."""
+    dh = q.shape[2]
+    return _online_softmax(q, k, v, rep=rep, window=window, q_offset=q_offset,
+                           bkv=f32_kv_tile(dh), scale_log2=_scale_log2(dh),
+                           scores=lambda qf, kt: _split_mm(qf, kt.transpose(1, 2)),
+                           pv=lambda p, vt: (_split_mm(p, vt), p.sum(-1, keepdim=True)))
 
 
 # against the plain version: (n_kv, rep, sq, sk, dh, window, q_offset, q scale)
@@ -180,16 +254,69 @@ def test_tensor_core_emulation_matches_pallas_kernel(name):
 
 @pytest.mark.parametrize("name", list(EMULATION_CASES))
 def test_tensor_core_emulation_matches_plain_version(name):
-    n_kv, rep, sq, sk, dh, window, q_offset, q_scale = EMULATION_CASES[name]
-    rng = np.random.default_rng(11)
-    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16()
-               for shape in ((n_kv * rep, sq, dh), (n_kv, sk, dh), (n_kv, sk, dh)))
-    q = q * q_scale  # a power of two: exact in bf16
-    kw = dict(rep=rep, window=window, q_offset=q_offset)
+    q, k, v, kw = _emulation_inputs(name, torch.bfloat16)
     got = _tensor_core_emulation(q, k, v, **kw)
     want = tref.flash_attention_ref(q, k, v, **kw)
     assert got.dtype == want.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def _emulation_inputs(name, dtype):
+    n_kv, rep, sq, sk, dh, window, q_offset, q_scale = EMULATION_CASES[name]
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+               for shape in ((n_kv * rep, sq, dh), (n_kv, sk, dh), (n_kv, sk, dh)))
+    q = q * q_scale  # a power of two: exact in bf16 and float32
+    return q, k, v, dict(rep=rep, window=window, q_offset=q_offset)
+
+
+@pytest.mark.parametrize("name", [n for n, c in CASES.items() if c[7] == F32])
+def test_split_tf32_emulation_matches_pallas_kernel(name):
+    case = CASES[name]
+    q, k, v = (torch.from_numpy(a) for a in _jax_side()[0][name])
+    got = _split_tf32_emulation(q, k, v, rep=case[1], window=case[5], q_offset=case[6])
+    assert got.dtype == torch.float32
+    atol, rtol = _tol(case)
+    np.testing.assert_allclose(got.numpy(), _jax_side()[1][name][0], atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("name", list(EMULATION_CASES))
+def test_split_tf32_emulation_matches_plain_version(name):
+    """Float32 twins of the bf16 emulation's cases (d_head 256 with a
+    window, a ragged offset, peaked logits) at the float32 tolerances."""
+    q, k, v, kw = _emulation_inputs(name, torch.float32)
+    got = _split_tf32_emulation(q, k, v, **kw)
+    want = tref.flash_attention_ref(q, k, v, **kw)
+    atol, rtol = _tol(EMULATION_CASES[name][:7] + (F32,))
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+def _random_unit_floats(seed):
+    """float32 in (0, 1]: uniform, and log-uniform down to 2^-100."""
+    rng = np.random.default_rng(seed)
+    uniform = 1.0 - rng.random(50_000)
+    spread = np.exp2(-100.0 * rng.random(50_000))
+    return torch.from_numpy(np.concatenate([uniform, spread]).astype(np.float32))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_split_of_p_carries_16_bits(seed):
+    """P_hi + P_lo, two bf16 values, is within 2^-16 P of P."""
+    p = _random_unit_floats(seed)
+    hi, lo = _split_bf16(p)
+    assert bool(((p - (hi + lo)).abs() <= p * 2.0 ** -16).all())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tf32_split_carries_22_bits(seed):
+    """hi and lo are TF32 values (the low 13 bits clear), hi is x rounded to
+    nearest, and hi + lo is within 2^-22 |x| of x, either sign."""
+    x = _random_unit_floats(seed) * torch.where(torch.arange(100_000) % 2 == 0, 1.0, -1.0)
+    hi, lo = _split_tf32(x)
+    for part in (hi, lo):
+        assert bool((part.view(torch.int32) & 0x1FFF == 0).all())
+    assert bool(((x - hi).abs() <= x.abs() * 2.0 ** -11).all())
+    assert bool(((x - (hi + lo)).abs() <= x.abs() * 2.0 ** -22).all())
 
 
 _REFUSED = ["d_head", "d_head_big", "rep", "dtype", "kv_shape", "float16", "misaligned",
@@ -201,8 +328,8 @@ _REFUSED = ["d_head", "d_head_big", "rep", "dtype", "kv_shape", "float16", "misa
     [pytest.param(torch.float32, bad, id=bad) for bad in _REFUSED]
     + [pytest.param(torch.bfloat16, bad, id=f"bf16-{bad}") for bad in _REFUSED + ["q_tiles"]])
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(dtype, bad):
-    """Both routes (float32: the CUDA-core kernel; bf16: the tensor-core
-    one) raise before any launch; nothing falls back to the other route or
+    """Both routes (float32: the split-TF32 kernel; bf16: the wgmma one)
+    raise before any launch; nothing falls back to the other route or
     to the plain version."""
     q, k, v = (torch.zeros(shape, dtype=dtype) for shape in ((4, 8, 16), (2, 8, 16), (2, 8, 16)))
     rep = 2
@@ -231,9 +358,9 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(dtype, bad):
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """Both routes against the plain version on the card: ragged lengths,
-    rep 1/2, windows (8, smaller than a kv tile; 64), offsets (384),
-    d_head 64/128/256, Sq 1, 129 and 200 against the bf16 kernel's 128-row
-    q tiles; float32 (the CUDA-core kernel) and bfloat16 (the tensor-core
+    rep 1/2, windows (8, smaller than a kv tile; 64), offsets (130 to 384),
+    d_head 64/128/256 and off them (8 to 248: column boxes partly or wholly
+    past d_head), Sq 1, 129 and 200 against the kernels' 128-row q tiles; float32 (the split-TF32 kernel) and bfloat16 (the wgmma
     kernel, counted as its own route)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -246,7 +373,15 @@ def test_cuda_kernel_matches_plain_version():
                                                      (1, 2, 200, 200, 256, 8, 0),
                                                      (2, 2, 129, 513, 256, 0, 384),
                                                      (1, 2, 200, 584, 64, 8, 384),
-                                                     (1, 1, 1, 1, 128, 0, 0)]:
+                                                     (1, 1, 1, 1, 128, 0, 0),
+                                                     # d_head off the padded widths
+                                                     (1, 2, 100, 100, 8, 0, 0),
+                                                     (2, 1, 70, 200, 16, 8, 130),
+                                                     (1, 1, 50, 50, 32, 0, 0),
+                                                     (1, 2, 129, 129, 40, 64, 0),
+                                                     (1, 1, 64, 64, 96, 0, 0),
+                                                     (2, 1, 100, 300, 200, 0, 200),
+                                                     (1, 2, 130, 130, 248, 8, 0)]:
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
                        for s in ((n_kv * rep, sq, dh), (n_kv, sk, dh), (n_kv, sk, dh)))
