@@ -24,12 +24,24 @@ result):
    and read just after; K1, K2, K3 and the fused CG step (K4) must have
    launched, the step in every round, and K4 alone never. Each round is then
    re-run with the plain versions on the card (relative L2 gap <= 1e-3), and
-   its error against the true mean must beat Rand-k's expected error;
+   its error against the true mean must beat Rand-k's expected error (Eq. 1);
+   then the paper's comparison on the same tree, each round re-run through
+   the plain versions (gap <= 1e-3): with the per-chunk round's seed and a
+   draw per chunk, (a) Rand-k within 1 % of Eq. 1, (b) Rand-k-Spatial below
+   (a), (c) the subsample projection within relative L2 1e-6 of (b) (Lemma
+   4.1), the per-chunk srht round below (b); with the first shared round's
+   seed, (d) the srht gram and (e) direct decodes within 1e-3 of each other,
+   (f) the gauss projection (logged). (a)-(c) and (f) launch no kernel, (d)
+   and (e) K1 once a client and nothing else;
 5. profile one more shared-randomness round (torch.profiler): device time
    by kernel against the round's wall time; every K1, K3 and CG step launch
    in it must be the register-resident butterfly kernel, by name;
-6. a small tree through the kernels on the card and through the plain
-   versions on the CPU, which draw the same maps (relative L2 <= 1e-4);
+6. a small tree through every ported config (rand_k, Rand-k-Spatial in both
+   r_modes, Rand-Proj-Spatial's srht fused, gram and direct decodes and its
+   subsample and gauss projections, each in both draw modes; top_k,
+   identity, induced, wangni) on the card and on the CPU, which draw the same
+   maps: bitwise where no reduction order differs (rand_k, Rand-k-Spatial
+   fixed, subsample, top_k, identity, induced), else relative L2 <= 1e-4;
 7. the flash-attention kernel (K5) against its plain version on the card,
    both routes (bf16: the wgmma kernel; float32: the split-TF32 one),
    on a grid (rep 1/2; window 0/8/64/1024; q_offset 0/384 with Sq < Sk;
@@ -100,6 +112,8 @@ F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 SPLIT_TF32_OPS_PER_S = 495e12 / 3  # TF32 tensor cores, dense, three products a float32 one
 N_CLIENTS, K, D_BLOCK, RHO = 4, 64, 1024, 0.9
+BASELINE_SEED = 4         # the main path's per-chunk round, and baselines (a)-(c)
+SHARED_BASELINE_SEED = 1  # the main path's first shared round, and baselines (d)-(f)
 
 # mamba2-130m (src/repro/configs/mamba2_130m.py): its parameter tree, as
 # jax.eval_shape(init_params) gives it; 129,100,224 values, 126,075 chunks
@@ -538,7 +552,9 @@ def _spec(shared: bool, use_kernel: str):
                                  shared_randomness=shared, use_kernel=use_kernel)
 
 
-def phase_main_path(tree: dict) -> dict:
+def phase_main_path(tree: dict) -> tuple:
+    """-> (the kernels' launches in these rounds, {"true_mean", "randk_err",
+    "per_chunk_err": the per-chunk round's error})."""
     from repro_torch.dist import collectives
     from repro_torch.kernels import ops
 
@@ -550,7 +566,7 @@ def phase_main_path(tree: dict) -> dict:
     randk_err = float(np.sqrt((D_BLOCK / K - 1.0) * float((flat_clients.double() ** 2).sum()))
                       / N_CLIENTS / float(true_mean.double().norm()))
     del flat_clients
-    rounds = [(seed, True) for seed in (1, 2, 3)] + [(4, False)]
+    rounds = [(seed, True) for seed in (1, 2, 3)] + [(BASELINE_SEED, False)]
 
     outs, rows = [], []
     torch.cuda.synchronize()
@@ -598,7 +614,113 @@ def phase_main_path(tree: dict) -> dict:
         log("round " + json.dumps(r))
     log(f"main path: 4 rounds of 4 x {MAMBA2_130M_PARAMS} values ok; launches {dict(launches)}; "
         f"Rand-k expected rel err {randk_err:.4f}")
-    return dict(launches)
+    return dict(launches), {"true_mean": true_mean, "randk_err": randk_err,
+                            "per_chunk_err": rows[-1]["rel_err_vs_true_mean"]}
+
+
+def _baseline_specs(use_kernel: str) -> dict:
+    """The paper's comparison: (a)-(c) with a draw per chunk, (d)-(f) with
+    one draw per client; every Rand-Proj-Spatial round on ``use_kernel``."""
+    from repro_torch.core import codec
+
+    per_chunk = dict(k=K, d_block=D_BLOCK, shared_randomness=False)
+    rps = dict(k=K, d_block=D_BLOCK, transform="avg", use_kernel=use_kernel)
+    return {
+        "a_rand_k": codec.RandK(**per_chunk),
+        "b_rand_k_spatial": codec.RandKSpatial(transform="avg", **per_chunk),
+        "c_subsample": codec.RandProjSpatial(projection="subsample", **dict(rps, **per_chunk)),
+        "d_srht_gram": codec.RandProjSpatial(decode_method="gram", **rps),
+        "e_srht_direct": codec.RandProjSpatial(decode_method="direct", **rps),
+        "f_gauss_gram": codec.RandProjSpatial(projection="gauss", **rps),
+    }
+
+
+def phase_baselines(tree: dict, main: dict) -> dict:
+    """The paper's comparison at full width on the main path's tree: Rand-k,
+    Rand-k-Spatial and Rand-Proj-Spatial's subsample projection with the
+    per-chunk round's seed (the same key gives all three the same indices),
+    then the srht gram and direct decodes and the gauss projection with the
+    first shared round's seed. Each round: wall ms (CUDA events), error
+    against the true mean, gap to the same round through the plain versions
+    on the card, the kernels it launched. -> the rounds, by name."""
+    from repro_torch.core import beta as beta_lib
+    from repro_torch.dist import collectives
+    from repro_torch.kernels import ops
+
+    true_mean = main["true_mean"]
+    t0 = time.perf_counter()  # set-up outside the timed rounds
+    beta_lib.srht_eig_bank(N_CLIENTS, K, D_BLOCK, device=DEV, projection="gauss")
+    torch.cuda.synchronize()
+    log(f"baselines: gauss eigenvalue bank ready in {time.perf_counter() - t0:.3f} s")
+    specs, plain_specs = _baseline_specs("auto"), _baseline_specs("never")
+    rows, outs = {}, {}
+    for name, spec in specs.items():
+        seed = SHARED_BASELINE_SEED if spec.shared_randomness else BASELINE_SEED
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        mean_tree, _, _ = collectives.compressed_mean_tree(spec, seed, tree, device=DEV)
+        b.record()
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        out = _flat(mean_tree)
+        del mean_tree
+        if not torch.isfinite(out).all():
+            fail(f"baseline {name}: non-finite mean")
+        # the plain rerun is a warm second call of the round (of the same code
+        # where the round launches no kernel): its wall ms shows first-call costs
+        a2, b2 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a2.record()
+        plain_tree, _, _ = collectives.compressed_mean_tree(plain_specs[name], seed, tree,
+                                                            device=DEV)
+        b2.record()
+        torch.cuda.synchronize()
+        rows[name] = {
+            "round": name, "config": repr(spec), "seed": seed, "wall_ms": a.elapsed_time(b),
+            "plain_wall_ms": a2.elapsed_time(b2),
+            "rel_err_vs_true_mean": rel_l2(out, true_mean),
+            "rel_gap_vs_plain_on_card": rel_l2(out, _flat(plain_tree)),
+            "launches": {k: after.get(k, 0) - before.get(k, 0) for k in sorted(after)
+                         if after.get(k, 0) != before.get(k, 0)},
+        }
+        del plain_tree
+        log("baseline round " + json.dumps(rows[name]))
+        if rows[name]["rel_gap_vs_plain_on_card"] > 1e-3:
+            fail(f"baseline {name}: kernel and plain paths differ by "
+                 f"{rows[name]['rel_gap_vs_plain_on_card']}")
+        if name in ("b_rand_k_spatial", "c_subsample", "d_srht_gram", "e_srht_direct"):
+            outs[name] = out
+
+    err = {name: r["rel_err_vs_true_mean"] for name, r in rows.items()}
+    summary = {
+        "randk_expected": main["randk_err"], "per_chunk_srht_fused": main["per_chunk_err"],
+        "a_over_expected": err["a_rand_k"] / main["randk_err"],
+        # Lemma 4.1 at full width: a reciprocal-then-multiply against a divide
+        "c_vs_b_rel_l2": rel_l2(outs["c_subsample"], outs["b_rand_k_spatial"]),
+        "d_vs_e_rel_l2": rel_l2(outs["d_srht_gram"], outs["e_srht_direct"]),
+    }
+    log("baselines " + json.dumps(summary))
+    if not abs(summary["a_over_expected"] - 1.0) <= 0.01:
+        fail(f"Rand-k's error {err['a_rand_k']} is not within 1 % of Eq. 1's "
+             f"{main['randk_err']}")
+    if not err["b_rand_k_spatial"] < err["a_rand_k"]:
+        fail(f"Rand-k-Spatial's error {err['b_rand_k_spatial']} is not below Rand-k's "
+             f"{err['a_rand_k']}")
+    if not summary["c_vs_b_rel_l2"] <= 1e-6:
+        fail(f"the subsample projection differs from Rand-k-Spatial by "
+             f"{summary['c_vs_b_rel_l2']} (Lemma 4.1)")
+    if not main["per_chunk_err"] < err["b_rand_k_spatial"]:
+        fail(f"the per-chunk srht round's error {main['per_chunk_err']} is not below "
+             f"Rand-k-Spatial's {err['b_rand_k_spatial']}")
+    if not summary["d_vs_e_rel_l2"] <= 1e-3:
+        fail(f"the gram and direct decodes differ by {summary['d_vs_e_rel_l2']}")
+    for name, r in rows.items():
+        want = {"fwht": N_CLIENTS} if name in ("d_srht_gram", "e_srht_direct") else {}
+        if r["launches"] != want:
+            fail(f"baseline {name} launched {r['launches']}, expected {want}: the encode's "
+                 "K1 once a client on the srht rounds, no kernel on the others")
+    return rows
 
 
 def _device_ms_by_kernel(prof) -> tuple:
@@ -675,24 +797,56 @@ def _take(tree, i):
     return tree[i]
 
 
-def phase_small_reference() -> None:
-    """A small three-leaf tree through the kernels on the card and through
-    the plain versions on the CPU: the draws are the same bits on both."""
+def _small_cases() -> dict:
+    """name -> (config, limit of the card's relative L2 gap to the CPU; 0.0
+    means bitwise): bitwise where no reduction order differs between the two."""
     from repro_torch.core import codec
+
+    kw = dict(k=16, d_block=256)
+    cases = {}
+    for shared in (True, False):
+        s = dict(kw, shared_randomness=shared)
+        mode = "shared" if shared else "per_chunk"
+        cases.update({
+            f"srht_fused/{mode}": (codec.RandProjSpatial(**s), 1e-4),  # the kernels' sums
+            f"rand_k/{mode}": (codec.RandK(**s), 0.0),
+            f"rand_k_spatial/{mode}": (codec.RandKSpatial(**s), 0.0),
+            # R-hat sums the whole vector
+            f"rand_k_spatial_est/{mode}": (codec.RandKSpatial(r_mode="est", **s), 1e-4),
+            f"subsample/{mode}": (codec.RandProjSpatial(projection="subsample", **s), 0.0),
+            # cuSOLVER against LAPACK, cuBLAS against the CPU's matmuls
+            f"srht_gram/{mode}": (codec.RandProjSpatial(decode_method="gram", **s), 1e-4),
+            f"srht_direct/{mode}": (codec.RandProjSpatial(decode_method="direct", **s), 1e-4),
+            f"gauss_gram/{mode}": (codec.RandProjSpatial(projection="gauss", **s), 1e-4),
+        })
+    cases.update({
+        "top_k": (codec.TopK(**kw), 0.0), "identity": (codec.Identity(d_block=256), 0.0),
+        "induced": (codec.Induced(**kw), 0.0),
+        "wangni": (codec.Wangni(**kw), 1e-4),  # its water level sums over d
+    })
+    return cases
+
+
+def phase_small_reference() -> None:
+    """A small three-leaf tree through every ported config on the card (the
+    kernels where the config has them) and on the CPU (the plain versions):
+    the draws are the same bits on both."""
     from repro_torch.dist import collectives
 
     g = torch.Generator().manual_seed(5)
     tree = {"w": torch.randn(N_CLIENTS, 40, 70, generator=g),
             "b": torch.randn(N_CLIENTS, 333, generator=g),
             "e": [torch.randn(N_CLIENTS, 7, 11, generator=g)]}
-    for shared in (True, False):
-        spec = codec.RandProjSpatial(k=16, d_block=256, shared_randomness=shared)
+    gaps = {}
+    for name, (spec, limit) in _small_cases().items():
         got, _, _ = collectives.compressed_mean_tree(spec, 9, tree, device=DEV)
         want, _, _ = collectives.compressed_mean_tree(spec, 9, tree, device="cpu")
-        gap = rel_l2(_flat(got).cpu(), _flat(want))
-        if not gap <= 1e-4:
-            fail(f"small tree, shared={shared}: card and CPU differ by {gap}")
-    log("small tree: card (kernels) vs CPU (plain) ok")
+        got, want = _flat(got).cpu(), _flat(want)
+        gaps[name] = rel_l2(got, want)
+        ok = torch.equal(got, want) if limit == 0.0 else gaps[name] <= limit
+        if not ok or not torch.isfinite(got).all():
+            fail(f"small tree, {name}: card and CPU differ by {gaps[name]} (limit {limit})")
+    log("small tree: card vs CPU, relative L2 gap by config " + json.dumps(gaps))
 
 
 # -------------------------------------------------------------------- phase 7
@@ -1195,7 +1349,9 @@ def main() -> int:
     calls = kernel_calls(inputs)
     phase_full_width_checks(errs, calls, inputs)
     tree = gradient_tree()
-    launches = phase_main_path(tree)
+    launches, main_path = phase_main_path(tree)
+    phase_baselines(tree, main_path)
+    del main_path
     phase_profile(tree)
     del tree
     phase_small_reference()

@@ -11,7 +11,12 @@ its own draws (core.random), on the device it is asked for, batched to bound
 memory, and caches it in memory and on disk under ``.cache/beta_torch/`` at
 the checkout root (or ``$REPRO_TORCH_BETA_CACHE``), never in the JAX
 package's ``.cache/beta``. The JAX bank samples rows with ``permutation``
-and the port with top-k scores: both are uniform k-subsets.
+and the port with top-k scores: both are uniform k-subsets. ``projection=``
+picks the maps: "srht" or "gauss" (N(0, 1/d) entries, core.random.normal);
+the gauss bank's file carries the projection in its name.
+
+Closed forms, the fast paths and test oracles of the JAX package:
+rho = 0 (T == 1) gives tr(S) = nk exactly, so beta = d/k (``srht_beta``).
 
 JAX evaluates beta at trace time; the port evaluates it eagerly at the first
 decode. For Rand-k-Spatial beta is exact from the binomial pmf.
@@ -19,6 +24,7 @@ decode. For Rand-k-Spatial beta is exact from the binomial pmf.
 from __future__ import annotations
 
 import functools
+import math
 import os
 
 import numpy as np
@@ -27,6 +33,7 @@ from scipy.stats import binom
 
 from .. import resolve_device
 from ..kernels import ops as kops
+from ..kernels import ref as kref
 from . import random as prand
 from . import transforms
 
@@ -43,13 +50,29 @@ def default_trials(n: int, k: int) -> int:
     return int(max(64, min(512, (1 << 18) // max(nk, 1))))
 
 
-def _bank_path(n: int, k: int, d: int, trials: int, seed: int) -> str:
-    return os.path.join(_CACHE_DIR, f"srht_eigs_n{n}_k{k}_d{d}_t{trials}_s{seed}.npy")
+PROJECTIONS = ("srht", "gauss")
+
+
+def _bank_path(n: int, k: int, d: int, trials: int, seed: int, projection: str) -> str:
+    name = f"eigs_n{n}_k{k}_d{d}_t{trials}_s{seed}.npy"
+    # the srht name predates the projection key; keep it, so cached banks stay valid
+    return os.path.join(_CACHE_DIR, f"srht_{name}" if projection == "srht"
+                        else f"{projection}_{name}")
+
+
+def _maps(ck: torch.Tensor, k: int, d: int, projection: str) -> torch.Tensor:
+    """ck.shape + (k, d) random maps, one per key."""
+    if projection == "srht":
+        draw = prand.srht_draw(ck, d, k)
+        return kops.srht_rows_matrix(draw["signs"], draw["rows"], d)
+    return prand.normal(ck, (k, d)) / math.sqrt(d)
 
 
 def simulate_bank(n: int, k: int, d: int, trials: int, seed: int = 0,
-                  device=None) -> np.ndarray:
-    """(trials, nk) float32 eigenvalues of A A^T, A the stack of n SRHT maps."""
+                  device=None, projection: str = "srht") -> np.ndarray:
+    """(trials, nk) float32 eigenvalues of A A^T, A the stack of n random maps."""
+    if projection not in PROJECTIONS:
+        raise ValueError(f"no eigenvalue bank for projection {projection!r}; have {PROJECTIONS}")
     device = resolve_device(device)
     tkeys = prand.fold_in(prand.key(seed, device), torch.arange(trials, device=device))
     ids = torch.arange(n, device=device)
@@ -57,27 +80,25 @@ def simulate_bank(n: int, k: int, d: int, trials: int, seed: int = 0,
     out = []
     for i in range(0, trials, bs):
         ck = prand.fold_in(tkeys[i:i + bs, None], ids)                 # (b, n)
-        draw = prand.srht_draw(ck, d, k)
-        a = kops.srht_rows_matrix(draw["signs"], draw["rows"], d)     # (b, n, k, d)
-        a = a.reshape(a.shape[0], n * k, d)
+        a = _maps(ck, k, d, projection).reshape(ck.shape[0], n * k, d)
         gram = a @ a.transpose(-1, -2)
         out.append(torch.linalg.eigvalsh(gram).cpu())
     return torch.cat(out).numpy().astype(np.float32)
 
 
 def srht_eig_bank(n: int, k: int, d: int, trials: int | None = None, seed: int = 0,
-                  device=None) -> np.ndarray:
-    """(trials, nk) eigenvalue bank for S with n SRHT clients; cached in
+                  device=None, projection: str = "srht") -> np.ndarray:
+    """(trials, nk) eigenvalue bank for S with n random-map clients; cached in
     memory and on disk. ``device`` is where a missing bank is simulated."""
     trials = trials or default_trials(n, k)
-    ck = (n, k, d, trials, seed)
+    ck = (n, k, d, trials, seed, projection)
     if ck in _BANKS:
         return _BANKS[ck]
     path = _bank_path(*ck)
     if os.path.exists(path):
         eigs = np.load(path)
     else:
-        eigs = simulate_bank(n, k, d, trials, seed, device)
+        eigs = simulate_bank(n, k, d, trials, seed, device, projection)
         os.makedirs(_CACHE_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp.npy"
         np.save(tmp, eigs)
@@ -114,6 +135,15 @@ def beta_fn_from_bank(bank, n: int, d: int, eps: float = 0.0):
     return beta
 
 
+def srht_beta(n: int, k: int, d: int, rho: float, trials: int | None = None, seed: int = 0,
+              device=None) -> float:
+    """Scalar beta for Rand-Proj-Spatial (SRHT) with T_rho; rho = 0 is exact."""
+    if rho == 0.0:
+        return d / k  # tr(S) = nk: SRHT rows are unit norm
+    bank = srht_eig_bank(n, k, d, trials, seed, device)
+    return float(beta_fn_from_bank(bank, n, d)(torch.tensor(rho, dtype=torch.float32)))
+
+
 @functools.lru_cache(maxsize=256)
 def rand_k_spatial_beta_weights(n: int, k: int, d: int) -> tuple[float, np.ndarray]:
     """(p, pmf of B ~ Bin(n-1, p)) with p = k/d, in float64."""
@@ -122,9 +152,11 @@ def rand_k_spatial_beta_weights(n: int, k: int, d: int) -> tuple[float, np.ndarr
 
 
 def rand_k_spatial_beta(n: int, k: int, d: int, rho: torch.Tensor) -> torch.Tensor:
-    """Exact beta = 1 / (p E[1/T(1+B)]); rho a float32 tensor, 0-dim or (C,)."""
+    """Exact beta = 1 / (p E[1/T(1+B)]); rho a float32 tensor, 0-dim or (C,).
+    The expectation sums its n terms in order, so the card and the CPU give
+    the same bits."""
     p, pmf = rand_k_spatial_beta_weights(n, k, d)
     m = 1.0 + torch.arange(n, dtype=torch.float32, device=rho.device)
     inv_t = 1.0 / transforms.t_apply(m, rho[..., None])
     w = torch.as_tensor(pmf, dtype=torch.float32, device=rho.device)
-    return 1.0 / (p * (w * inv_t).sum(-1))
+    return 1.0 / (p * kref.client_sum((w * inv_t).movedim(-1, 0)))

@@ -6,6 +6,7 @@
 """
 from .payload import (  # noqa: F401
     AUX,
+    INDICES,
     VALUES,
     ArraySpec,
     Payload,
@@ -13,4 +14,13 @@ from .payload import (  # noqa: F401
     check_against_schema,
 )
 from .pipeline import Pipeline, as_pipeline  # noqa: F401
-from .sparsifiers import RandProjSpatial, Sparsifier  # noqa: F401
+from .sparsifiers import (  # noqa: F401
+    Identity,
+    Induced,
+    RandK,
+    RandKSpatial,
+    RandProjSpatial,
+    Sparsifier,
+    TopK,
+    Wangni,
+)

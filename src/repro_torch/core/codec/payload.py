@@ -14,8 +14,9 @@ from typing import NamedTuple
 
 import numpy as np
 
-# ArraySpec kinds of this slice's payloads
-VALUES = "values"    # quantizable payload values
+# ArraySpec kinds of the ported payloads
+VALUES = "values"    # quantizable payload values (vals / top_vals / rand_vals)
+INDICES = "indices"  # data-dependent coordinates (top_k / wangni / induced)
 AUX = "aux"          # side statistics (e.g. norm_sq for the online R-hat)
 
 

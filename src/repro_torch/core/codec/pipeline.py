@@ -20,10 +20,10 @@ from .sparsifiers import Sparsifier
 
 # ROADMAP items of the stages this pipeline does not run yet
 _UNPORTED_ROLES = {
-    "quantize": "A.5 codec layer: quantizers",
-    "feedback": "A.5 codec layer: stages (error feedback)",
-    "temporal": "A.5 codec layer: stages (temporal)",
-    "code": "A.5 codec layer: entropy coding",
+    "quantize": "A.6 codec layer: quantizers",
+    "feedback": "A.6 codec layer: stages (error feedback)",
+    "temporal": "A.6 codec layer: stages (temporal)",
+    "code": "A.6 codec layer: entropy coding",
 }
 
 
@@ -55,8 +55,9 @@ class Pipeline:
         return self.sparsifier.d_block
 
     def with_budget(self, k: int) -> "Pipeline":
-        """Re-target the sparsifier at budget ``k`` (no-op when it matches)."""
-        if self.sparsifier.k == k:
+        """Re-target the sparsifier at budget ``k`` (no-op for budget-free
+        sparsifiers like identity, and when k already matches)."""
+        if not hasattr(self.sparsifier, "k") or self.sparsifier.k == k:
             return self
         return Pipeline((dataclasses.replace(self.sparsifier, k=k),))
 
@@ -81,7 +82,7 @@ class Pipeline:
 
     def encode_payload(self, key, client_id, x_cd, draws=None) -> Payload:
         """Sparsify one client's (C, d_block) chunks; ``draws`` is this
-        client's slice of the stacked draws (rand_proj_spatial.encode)."""
+        client's slice of the stacked draws (leaves (1|C, ...))."""
         arrays = self.sparsifier.encode(key, client_id, x_cd, draws=draws)
         return Payload(arrays=arrays, meta=self.payload_meta(x_cd.shape[0]))
 
@@ -96,6 +97,12 @@ class Pipeline:
         pipe = self._for_payload(payloads)
         return pipe.sparsifier.decode(key, arrays_of(payloads), n, client_ids=client_ids,
                                       chunk_offset=chunk_offset, draws=draws, bank=bank)
+
+    def self_decode(self, key, client_id, payload, draws=None):
+        """One client's unbiased view of what the server attributes to it;
+        ``draws`` is this client's slice of the stacked draws."""
+        pipe = self._for_payload(payload)
+        return pipe.sparsifier.self_decode(key, client_id, arrays_of(payload), draws=draws)
 
     def encode(self, key, client_id, x_cd, *, side_info=None, draws=None):
         """One client's encode (side information subtracted first). Returns

@@ -1,1 +1,11 @@
-"""Estimator implementations registered in the codec registry."""
+"""Estimator implementations; importing this package registers every codec
+in the codec registry (estimators.base)."""
+from . import (  # noqa: F401
+    identity,
+    induced,
+    rand_k,
+    rand_k_spatial,
+    rand_proj_spatial,
+    top_k,
+    wangni,
+)

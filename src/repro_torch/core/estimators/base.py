@@ -13,6 +13,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import torch
+
 from .. import random as prand
 
 
@@ -20,7 +22,8 @@ from .. import random as prand
 class Codec:
     encode: Callable[..., Any]
     decode: Callable[..., Any]
-    # self_decode(spec, key, client_id, arrays) -> (C, d), where ported
+    # self_decode(spec, key, client_id, arrays) -> (C, d): the client's own
+    # reconstruction of what the server received from it
     self_decode: Callable[..., Any] | None = None
 
 
@@ -47,3 +50,21 @@ def client_key(key, client_id):
 
 def chunk_key(ckey, chunk_id):
     return prand.fold_in(ckey, chunk_id)
+
+
+def draw_keys(key, client_id, n_chunks: int, device, shared: bool = False,
+              chunk_offset: int = 0) -> torch.Tensor:
+    """One client's draw keys: (1,) its client key with shared randomness,
+    else (C,) chunk keys by GLOBAL chunk position (chunk_offset + local
+    index), so a chunk-slice decode re-derives the full decode's draws."""
+    ckey = client_key(prand.as_key(key, device), client_id)
+    if shared:
+        return ckey.reshape(1)
+    return chunk_key(ckey, chunk_offset + torch.arange(n_chunks, device=device))
+
+
+def no_draws(spec, draws) -> None:
+    """Refuse draws given to the encode of a codec that draws nothing."""
+    if draws is not None:
+        raise ValueError(f"{spec.name} draws nothing from the round key; got draws "
+                         f"{sorted(draws)}")

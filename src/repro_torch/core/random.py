@@ -15,19 +15,36 @@ with its own generator, not bitwise equal to threefry:
   the same on the CPU and on the card, and the kernel path on the card sees
   the maps that the plain path on the CPU sees.
 
-Draws have the laws of the JAX package's: signs are Rademacher, and rows are
-a uniform k-subset of distinct coordinates, the top-k of per-coordinate hash
-scores (each score times d plus the coordinate, so no two tie and the
-selection is the same on every device).
+Draws have the laws of the JAX package's. Each comes from its own stream of
+a key, a 31-bit word hashed per element with ``fold_in``:
+
+- ``subset``: a uniform k-subset of distinct coordinates, the top-k of
+  ``fold_in(key, j) * d + j`` over the coordinates j, from the key itself
+  (no stream fold; the score's ``+ j`` breaks ties, so the selection is the
+  same on every device), in descending score order. With k = d it is a
+  uniform order of all d coordinates, and its prefixes are uniform subsets.
+  Rand-k's indices, the subsample projection's rows and induced's random
+  part are this draw;
+- ``srht_draw``: the SRHT map. Its signs are Rademacher, bit 15 of stream 0
+  (``fold_in(fold_in(key, 0), j)``); its rows are ``subset`` of stream 1
+  (``fold_in(key, 1)``);
+- ``normal``: standard normals by Box-Muller from streams 2 and 3;
+- ``uniform``: uniforms on [0, 1) from stream 4.
+
+A uniform takes the top 24 bits of its 31-bit word, times 2**-24: exact in
+float32 and strictly below 1, so ``uniform < p`` holds whenever p = 1.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 M31 = 0x7FFFFFFF
 _MUL_MIX = 0x45D9F3B      # < 2**27: a 31-bit word times it stays below 2**58
 _MUL_FOLD = 0x01000193    # < 2**25: a 31-bit word times it stays below 2**56
-_SIGNS, _ROWS = 0, 1      # sub-streams of a draw key
+_SIGNS, _ROWS, _NORMAL_R, _NORMAL_THETA, _UNIFORM = 0, 1, 2, 3, 4  # streams of a key
 
 
 def _mix(h: torch.Tensor) -> torch.Tensor:
@@ -62,15 +79,46 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     return _mix((k * _MUL_FOLD + data) & M31)
 
 
+def _words(keys: torch.Tensor, m: int) -> torch.Tensor:
+    """keys.shape + (m,) words: element j is ``fold_in(key, j)``."""
+    return fold_in(keys[..., None], torch.arange(m, dtype=torch.int64, device=keys.device))
+
+
+def subset(keys: torch.Tensor, d: int, k: int) -> torch.Tensor:
+    """One uniform k-subset of range(d) per key: keys.shape + (k,) int64,
+    distinct, in descending score order."""
+    if not 1 <= k <= d:
+        raise ValueError(f"need 1 <= k <= d, got k={k}, d={d}")
+    score = _words(keys, d) * d + torch.arange(d, dtype=torch.int64, device=keys.device)
+    return torch.topk(score, k, dim=-1, sorted=True).indices
+
+
 def srht_draw(keys: torch.Tensor, d: int, k: int) -> dict:
     """One SRHT draw per key: {"signs": keys.shape + (d,) float32 +-1,
     "rows": keys.shape + (k,) int64, distinct, in descending score order}."""
-    if not 1 <= k <= d:
-        raise ValueError(f"need 1 <= k <= d, got k={k}, d={d}")
-    j = torch.arange(d, dtype=torch.int64, device=keys.device)
-    sbits = fold_in(fold_in(keys, _SIGNS)[..., None], j)
+    rows = subset(fold_in(keys, _ROWS), d, k)
+    sbits = _words(fold_in(keys, _SIGNS), d)
     signs = (1 - 2 * ((sbits >> 15) & 1)).to(torch.float32)
-    del sbits
-    score = fold_in(fold_in(keys, _ROWS)[..., None], j) * d + j
-    rows = torch.topk(score, k, dim=-1, sorted=True).indices
     return {"signs": signs, "rows": rows}
+
+
+def _unit(words: torch.Tensor) -> torch.Tensor:
+    """31-bit words -> float64 uniforms on [0, 1), multiples of 2**-24."""
+    return (words >> 7).to(torch.float64) * 2.0**-24
+
+
+def uniform(keys: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """keys.shape + shape float32 uniforms on [0, 1), from stream 4."""
+    m = int(np.prod(shape, dtype=np.int64))
+    u = _unit(_words(fold_in(keys, _UNIFORM), m))
+    return u.to(torch.float32).reshape(keys.shape + tuple(shape))
+
+
+def normal(keys: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """keys.shape + shape float32 standard normals: Box-Muller
+    sqrt(-2 ln u1) cos(2 pi u2) in float64, u1 = 1 - uniform of stream 2
+    (in (0, 1]), u2 a uniform of stream 3."""
+    m = int(np.prod(shape, dtype=np.int64))
+    radius = torch.sqrt(-2.0 * torch.log1p(-_unit(_words(fold_in(keys, _NORMAL_R), m))))
+    theta = (2.0 * math.pi) * _unit(_words(fold_in(keys, _NORMAL_THETA), m))
+    return (radius * torch.cos(theta)).to(torch.float32).reshape(keys.shape + tuple(shape))

@@ -101,7 +101,7 @@ def compressed_mean_tree(spec, key, tree, shardings=None, ef_chunks=None, partic
     if ownership:
         raise NotImplementedError("ownership= is not ported yet (ROADMAP A.7/A.9)")
     if ef_chunks is not None:
-        raise NotImplementedError("ef_chunks= (error feedback) is not ported yet (ROADMAP A.5)")
+        raise NotImplementedError("ef_chunks= (error feedback) is not ported yet (ROADMAP A.6)")
     del overlap_tile
     pipe = as_pipeline(spec)
     dev = resolve_device(device)

@@ -1,13 +1,14 @@
 """Carry the JAX package's state into the port, through numpy.
 
-The estimator's state is the per-client SRHT maps of a round and the
-eigenvalue bank behind beta. The port draws its maps with its own generator
+The estimator's state is the per-client maps of a round and the eigenvalue
+bank behind beta. The port draws its maps with its own generator
 (core.random), so a comparison with the JAX package carries the JAX draws
 and bank across, as numpy arrays:
 
 - ``draws_from_numpy`` takes the ``_fused_draws`` layout of
-  repro.core.estimators.rand_proj_spatial: signs (n, 1|C, d) and rows
-  (n, 1|C, k), int32 rows becoming int64;
+  repro.core.estimators.rand_proj_spatial, one form a projection: srht
+  signs (n, 1|C, d) and rows (n, 1|C, k); rows alone (Rand-k's indices,
+  the subsample projection); gauss g (n, 1|C, k, d). Rows become int64;
 - ``bank_from_numpy`` takes the (trials, nk) bank of repro.core.beta;
 - ``tree_from_numpy`` takes a tree (dicts, lists, tuples) of arrays;
 - ``params_from_numpy`` takes a model's ``init_params`` tree and
@@ -24,17 +25,27 @@ from . import resolve_device
 from .models import transformer
 
 
+_DRAW_FORMS = {  # names -> (dtype, ndim) of each array
+    ("rows", "signs"): {"signs": (np.float32, 3), "rows": (np.int64, 3)},
+    ("rows",): {"rows": (np.int64, 3)},
+    ("g",): {"g": (np.float32, 4)},
+}
+
+
 def draws_from_numpy(draws: dict, device=None) -> dict:
-    """{"signs", "rows"} arrays -> float32 signs and int64 rows on ``device``."""
+    """Draw arrays -> tensors on ``device``: srht {"signs" (n, 1|C, d),
+    "rows" (n, 1|C, k)}, {"rows"} alone, or gauss {"g" (n, 1|C, k, d)}."""
     dev = resolve_device(device)
-    signs = np.array(draws["signs"], dtype=np.float32)
-    rows = np.array(draws["rows"], dtype=np.int64)
-    if signs.ndim != 3 or rows.ndim != 3 or signs.shape[:2] != rows.shape[:2]:
-        raise ValueError(
-            f"draws must be (n, 1|C, d) signs and (n, 1|C, k) rows, got "
-            f"{signs.shape} and {rows.shape}"
-        )
-    return {"signs": torch.from_numpy(signs).to(dev), "rows": torch.from_numpy(rows).to(dev)}
+    form = _DRAW_FORMS.get(tuple(sorted(draws)))
+    if form is None:
+        raise ValueError(f"draws must hold {[list(f) for f in _DRAW_FORMS]}, got {sorted(draws)}")
+    arrs = {name: np.array(draws[name], dtype=dtype) for name, (dtype, _) in form.items()}
+    lead = {a.shape[:2] for a in arrs.values()}
+    if any(a.ndim != form[name][1] for name, a in arrs.items()) or len(lead) != 1:
+        want = ", ".join(f"{name} of {ndim} dims" for name, (_, ndim) in form.items())
+        raise ValueError(f"draws must be {want}, all led by (n, 1|C), got "
+                         f"{ {name: a.shape for name, a in arrs.items()} }")
+    return {name: torch.from_numpy(a).to(dev) for name, a in arrs.items()}
 
 
 def bank_from_numpy(eigs) -> torch.Tensor:

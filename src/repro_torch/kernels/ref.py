@@ -111,7 +111,7 @@ def srht_encode_batch_ref(x: torch.Tensor, signs: torch.Tensor,
     return torch.gather(t, -1, rows.long())
 
 
-def _client_sum(t: torch.Tensor) -> torch.Tensor:
+def client_sum(t: torch.Tensor) -> torch.Tensor:
     """Sum over the leading (client) axis in client order, as the kernels do."""
     acc = t[0]
     for i in range(1, t.shape[0]):
@@ -125,7 +125,7 @@ def srht_decode_sum_ref(z: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor
     rows (n, C|1, k). -> (C, d)"""
     full = srht_scatter_ref(z, rows, d)
     out = fwht_rowsigns_ref(full, signs, sign_post=True, scale=1.0 / np.sqrt(d))
-    return _client_sum(out)
+    return client_sum(out)
 
 
 def srht_gram_apply_ref(v: torch.Tensor, signs: torch.Tensor,
@@ -136,7 +136,7 @@ def srht_gram_apply_ref(v: torch.Tensor, signs: torch.Tensor,
     d = v.shape[-1]
     t = fwht_rowsigns_ref(v[None], signs, sign_pre=True)
     t = fwht_rowsigns_ref(mask * t, signs, sign_post=True, scale=1.0 / d)
-    return _client_sum(t)
+    return client_sum(t)
 
 
 def row_dot_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

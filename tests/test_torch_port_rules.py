@@ -5,18 +5,21 @@
 - on a CPU tensor the ops run the plain versions, ``use_kernel="force"``
   raises, and the CUDA build is never reached, by the estimator or by a
   model's prefill;
-- what is not ported yet (Mamba layers, the MoE FFN) raises.
+- what is not ported yet (sparse_proj, the quantize stage, error feedback,
+  the ownership decode, Mamba layers, the MoE FFN) raises.
 """
 from __future__ import annotations
 
 import ast
 import pathlib
+import types
 
 import pytest
 import torch
 
 import repro_torch
 from repro_torch.core import codec
+from repro_torch.core.estimators import base as est_base
 from repro_torch.dist import collectives
 from repro_torch import configs
 from repro_torch.kernels import _build, ops
@@ -101,25 +104,36 @@ def test_force_on_cpu_tensor_raises(op):
     assert torch.equal(call("auto"), call("never"))
 
 
-def test_cpu_path_never_touches_the_kernel_build(monkeypatch):
+@pytest.mark.parametrize("spec", [
+    codec.RandProjSpatial(k=4, d_block=32),
+    codec.RandK(k=4, d_block=32),
+    codec.RandProjSpatial(k=4, d_block=32, decode_method="gram", beta_trials=64),
+], ids=["fused", "rand_k", "gram"])
+def test_cpu_path_never_touches_the_kernel_build(monkeypatch, spec):
     def no_build():
         raise AssertionError("the CPU path reached the CUDA build")
 
     monkeypatch.setattr(_build, "build", no_build)
     before = ops.launch_counts()
     xs = torch.randn(3, 2, 32)
-    pipe = codec.Pipeline([codec.RandProjSpatial(k=4, d_block=32)])
+    pipe = codec.Pipeline([spec])
     out = pipe.mean_estimate(0, xs, device="cpu")
     assert out.shape == (2, 32) and torch.isfinite(out).all()
     assert ops.launch_counts() == before
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        codec.RandProjSpatial(projection="gauss")
-    with pytest.raises(NotImplementedError):
-        spec = codec.RandProjSpatial(k=4, d_block=32, decode_method="gram")
-        codec.Pipeline([spec]).mean_estimate(0, torch.randn(2, 1, 32), device="cpu")
+    with pytest.raises(KeyError, match="sparse_proj"):
+        est_base.get("sparse_proj")
+    with pytest.raises(NotImplementedError, match="quantize"):
+        codec.Pipeline([codec.RandK(k=4, d_block=32), types.SimpleNamespace(role="quantize")])
+    tree = {"w": torch.zeros(2, 64)}
+    spec = codec.RandK(k=8, d_block=64)
+    with pytest.raises(NotImplementedError, match="ef_chunks"):
+        collectives.compressed_mean_tree(spec, 0, tree, ef_chunks=torch.zeros(2, 1, 64),
+                                         device="cpu")
+    with pytest.raises(NotImplementedError, match="ownership"):
+        collectives.compressed_mean_tree(spec, 0, tree, ownership=2, device="cpu")
     with pytest.raises(ValueError):
         ops.fwht(torch.randn(2, 8), use_kernel="sometimes")
 

@@ -3,8 +3,10 @@
 With the JAX draws and eigenvalue bank carried across (repro_torch.interop),
 the two packages compute the same estimator: the encode agrees to rtol 1e-6,
 the fused decode to relative L2 <= 1e-4 (CG stops at a 1e-4 residual, so a
-rounding flip of one iteration must pass), and beta to rtol 1e-6. With the
-port's own draws and bank the estimator is unbiased.
+rounding flip of one iteration must pass), the gram and direct decodes of
+the srht and gauss projections to relative L2 <= 1e-4 (two LAPACK
+eigendecompositions), ``self_decode`` and beta to rtol 1e-6. With the port's
+own draws and bank the estimator is unbiased.
 """
 from __future__ import annotations
 
@@ -31,9 +33,9 @@ BETA_EPS = (0.0, 1e-2)
 BETA_RHOS = np.array([0.0, 1.0 / 3.0, 2.0 / 3.0, 1.0], np.float32)
 
 
-def _specs(shared, transform="avg", r_mode="fixed"):
+def _specs(shared, transform="avg", r_mode="fixed", **more):
     kw = dict(k=K, d_block=D, shared_randomness=shared, transform=transform, r_mode=r_mode,
-              r_value=2.0 if transform == "opt" else None, beta_trials=TRIALS)
+              r_value=2.0 if transform == "opt" else None, beta_trials=TRIALS, **more)
     return jcodec.RandProjSpatial(use_pallas="never", **kw), tcodec.RandProjSpatial(**kw)
 
 
@@ -49,6 +51,14 @@ def _rel_l2(got: torch.Tensor, want) -> float:
 DECODE_CASES = [(True, "one", "fixed"), (True, "max", "fixed"), (True, "avg", "fixed"),
                 (True, "opt", "fixed"), (True, "avg", "est"),
                 (False, "avg", "fixed"), (False, "avg", "est")]
+# the gram and direct routes: every projection with a bank, draw mode and r_mode
+ROUTE_CASES = [(method, proj, shared, r_mode) for method in ("gram", "direct")
+               for proj in ("srht", "gauss") for shared in (True, False)
+               for r_mode in ("fixed", "est")]
+
+
+def _route_id(method, proj, shared, r_mode) -> str:
+    return f"{method}-{proj}-{'shared' if shared else 'per_chunk'}-{r_mode}"
 
 
 @contextlib.contextmanager
@@ -90,12 +100,41 @@ def jax_side():
                  for eps in BETA_EPS}
         rks = jax.vmap(lambda r: jbeta.rand_k_spatial_beta(N, K, D, r))(BETA_RHOS)
         row_dot = jnp.sum(x * x, axis=-1, keepdims=True)  # as the CG's dot products
-        return out, betas, rks, row_dot
+        return out, betas, rks, row_dot, routes(x)
+
+    def routes(x):
+        """Per projection and draw mode: draws, payloads (both r_modes),
+        self_decodes; per case the gram or direct decode; one R-hat."""
+        got = {}
+        for proj in ("srht", "gauss"):
+            for shared in (True, False):
+                js = _specs(shared, r_mode="est", projection=proj)[0]
+                pay = jcodec.Pipeline([js]).encode_all(key, x)[0].arrays
+                got[f"{proj}/{shared}"] = {
+                    "draws": jrps._fused_draws(js, key, N, C, None, 0), "payload": pay,
+                    "self": jnp.stack([jrps.self_decode(js, key, i, {"vals": pay["vals"][i]})
+                                       for i in range(N)])}
+        for method, proj, shared, r_mode in ROUTE_CASES:
+            js = _specs(shared, r_mode=r_mode, projection=proj, decode_method=method)[0]
+            pay = got[f"{proj}/{shared}"]["payload"]
+            if r_mode == "fixed":
+                pay = {"vals": pay["vals"]}
+            got[_route_id(method, proj, shared, r_mode)] = jrps.decode(js, key, pay, N)
+        js = _specs(True, r_mode="est")[0]
+        a = jrps._stack_a(js, key, N)
+        pay = got["srht/True"]["payload"]
+        z = jnp.moveaxis(pay["vals"], 0, 1)
+        got["rho_hat"] = {"gram": a @ a.T, "z": z,
+                          "rho": jrps._rho_hat(js, N, z, a @ a.T, pay["norm_sq"])}
+        return got
 
     with _cheap_compiles():
         bank = np.asarray(jbeta.srht_eig_bank(N, K, D, TRIALS))
-        out, betas, rks, row_dot = jax.tree.map(np.asarray, jax.jit(everything)(jnp.asarray(xs)))
-    out.update(xs=xs, bank=bank, beta=betas, rand_k_spatial_beta=rks, row_dot=row_dot)
+        gauss_bank = np.asarray(jbeta.srht_eig_bank(N, K, D, TRIALS, projection="gauss"))
+        out, betas, rks, row_dot, routes = jax.tree.map(
+            np.asarray, jax.jit(everything)(jnp.asarray(xs)))
+    out.update(xs=xs, bank=bank, beta=betas, rand_k_spatial_beta=rks, row_dot=row_dot,
+               routes=routes, banks={"srht": bank, "gauss": gauss_bank})
     return out
 
 
@@ -243,3 +282,48 @@ def test_unbiased_with_own_draws_and_bank():
     err = est.mean(0) - xs.double().mean(0)
     sigma = est.std(0) / np.sqrt(seeds)
     assert (err.abs() <= 4 * sigma).all(), float((err.abs() / sigma).max())
+
+
+@pytest.mark.parametrize("method,proj,shared,r_mode", ROUTE_CASES,
+                         ids=[_route_id(*case) for case in ROUTE_CASES])
+def test_gram_and_direct_decodes_match_jax(jax_side, method, proj, shared, r_mode):
+    """The eigendecomposition routes on JAX's draws, payloads and bank."""
+    routes = jax_side["routes"]
+    _, ts = _specs(shared, r_mode=r_mode, projection=proj, decode_method=method)
+    pay = routes[f"{proj}/{shared}"]["payload"]
+    pay = {k: torch.from_numpy(v) for k, v in pay.items() if r_mode == "est" or k == "vals"}
+    got = trps.decode(ts, 0, pay, N,
+                      draws=interop.draws_from_numpy(routes[f"{proj}/{shared}"]["draws"], "cpu"),
+                      bank=interop.bank_from_numpy(jax_side["banks"][proj]))
+    assert got.shape == (C, D)
+    assert _rel_l2(got, routes[_route_id(method, proj, shared, r_mode)]) <= 1e-4
+
+
+@pytest.mark.parametrize("proj", ["srht", "gauss"])
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_chunk"])
+def test_self_decode_matches_jax(jax_side, proj, shared):
+    j = jax_side["routes"][f"{proj}/{shared}"]
+    _, ts = _specs(shared, projection=proj)
+    draws = interop.draws_from_numpy(j["draws"], "cpu")
+    for i in range(N):
+        got = tcodec.Pipeline([ts]).self_decode(
+            0, i, {"vals": torch.from_numpy(j["payload"]["vals"][i])},
+            draws={k: v[i] for k, v in draws.items()})
+        np.testing.assert_allclose(got.numpy(), j["self"][i], rtol=1e-6,
+                                   atol=1e-6 * np.abs(j["self"][i]).max())
+
+
+def test_rho_hat_matches_jax(jax_side):
+    j = jax_side["routes"]["rho_hat"]
+    _, ts = _specs(True, r_mode="est")
+    norm_sq = torch.from_numpy(jax_side["routes"]["srht/True"]["payload"]["norm_sq"])
+    got = trps._rho_hat(ts, N, torch.from_numpy(j["z"]), torch.from_numpy(j["gram"])[None],
+                        norm_sq)
+    np.testing.assert_allclose(got.numpy(), j["rho"], rtol=1e-5)
+
+
+def test_fused_gauss_raises():
+    """As in the JAX package: gauss maps have no FWHT structure."""
+    spec = tcodec.RandProjSpatial(k=K, d_block=D, projection="gauss", decode_method="fused")
+    with pytest.raises(ValueError, match="fused"):
+        tcodec.Pipeline([spec]).mean_estimate(0, torch.randn(N, C, D), device="cpu")
