@@ -33,6 +33,21 @@ result):
    seed, (d) the srht gram and (e) direct decodes within 1e-3 of each other,
    (f) the gauss projection (logged). (a)-(c) and (f) launch no kernel, (d)
    and (e) K1 once a client and nothing else;
+   then the codec layer on the same tree (``phase_codec``), each path's
+   counts zeroed just before it and read just after: (a) round 1 with each
+   quantizer (int8, correlated, bf16): payload bytes a client, error within
+   0.1 % of the unquantized round's, gap to the plain path <= 1e-3, K1 x 4,
+   K3 x 1 and 1-8 CG steps a round, and int8's rounding on the card bitwise
+   against the CPU on the same uniforms; (b) ``SparseProj(k=64, s=16)``
+   with shared draws: error below Rand-k's Eq. 1, gap to a rerun <= 1e-4
+   (its scatter-adds add in an unspecified order), no kernel, the bank's
+   build time and the CG steps; (c) top_k with error feedback, 4 rounds
+   (the last with clients 0-2 reporting): the running average's error
+   falls every round, each residual is x - self_decode within 1e-6 and the
+   absent client's row is kept bitwise; (d) the entropy coder on the host
+   over the first 2,048 chunks of each client's int8 payload and of a top_k
+   payload's indices: exact coded size, bitwise round trip, coded over raw;
+   (e) every new config on a small tree, card against CPU within 1e-4;
 5. profile one more shared-randomness round (torch.profiler): device time
    by kernel against the round's wall time; every K1, K3 and CG step launch
    in it must be the register-resident butterfly kernel, by name;
@@ -615,6 +630,7 @@ def phase_main_path(tree: dict) -> tuple:
     log(f"main path: 4 rounds of 4 x {MAMBA2_130M_PARAMS} values ok; launches {dict(launches)}; "
         f"Rand-k expected rel err {randk_err:.4f}")
     return dict(launches), {"true_mean": true_mean, "randk_err": randk_err,
+                            "round1_err": rows[0]["rel_err_vs_true_mean"],
                             "per_chunk_err": rows[-1]["rel_err_vs_true_mean"]}
 
 
@@ -723,6 +739,316 @@ def phase_baselines(tree: dict, main: dict) -> dict:
     return rows
 
 
+CODEC_KEYS = {"a_quantized": 1, "b_sparse_proj": SHARED_BASELINE_SEED, "c_ef": 3}  # seeds
+QUANT_BYTES = {"int8": 8_573_100, "correlated": 8_573_100, "bf16": 16_137_600}  # a client
+UNQUANTIZED_BYTES = 32_275_200
+SPARSE_S, EF_ROUNDS, ENTROPY_CHUNKS = 16.0, 4, 2048
+
+
+def _timed_round(fn) -> tuple:
+    """(result, wall ms by CUDA events) of one synchronised call."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _codec_quantized(tree: dict, main: dict) -> dict:
+    """(a) the main path's round 1 with each quantizer: bytes, error against
+    the unquantized round's, gap to the plain path, launches (counts zeroed
+    before these rounds, read after); then Int8's rounding on the card
+    against the CPU on the same uniforms."""
+    from repro_torch.core import codec
+    from repro_torch.core import random as prand
+    from repro_torch.core.codec import quantizers
+    from repro_torch.dist import collectives
+    from repro_torch.kernels import ops
+
+    seed, true_mean = CODEC_KEYS["a_quantized"], main["true_mean"]
+    quants = {"int8": codec.Int8Quant(), "correlated": codec.CorrelatedQuant(),
+              "bf16": codec.Bf16Quant()}
+    rows, outs = {}, {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()  # the quantized path's window opens here
+    for name, q in quants.items():
+        before = ops.launch_counts()
+        (mean_tree, info, _), ms = _timed_round(lambda: collectives.compressed_mean_tree(
+            codec.Pipeline([_spec(True, "auto"), q]), seed, tree, device=DEV))
+        after = ops.launch_counts()
+        outs[name] = _flat(mean_tree)
+        del mean_tree
+        rows[name] = {"round": name, "wall_ms": ms, "payload_bytes_per_client":
+                      info["payload_bytes_per_client"],
+                      "launches": {k: after.get(k, 0) - before.get(k, 0) for k in sorted(after)
+                                   if after.get(k, 0) != before.get(k, 0)}}
+    window = ops.launch_counts()  # ... and closes here
+    for name, q in quants.items():
+        out, r = outs.pop(name), rows[name]
+        # a warm second call of the same round: the first call's own costs
+        _, r["warm_wall_ms"] = _timed_round(lambda: collectives.compressed_mean_tree(
+            codec.Pipeline([_spec(True, "auto"), q]), seed, tree, device=DEV))
+        plain, _, _ = collectives.compressed_mean_tree(
+            codec.Pipeline([_spec(True, "never"), q]), seed, tree, device=DEV)
+        r["rel_err_vs_true_mean"] = rel_l2(out, true_mean)
+        r["err_over_unquantized"] = r["rel_err_vs_true_mean"] / main["round1_err"]
+        r["rel_gap_vs_plain_on_card"] = rel_l2(out, _flat(plain))
+        del plain, out
+        log("codec (a) quantized round " + json.dumps(r))
+        if r["payload_bytes_per_client"] != QUANT_BYTES[name]:
+            fail(f"(a) {name}: {r['payload_bytes_per_client']} payload bytes a client, "
+                 f"not {QUANT_BYTES[name]}")
+        if not abs(r["err_over_unquantized"] - 1.0) <= 1e-3:
+            fail(f"(a) {name}: error {r['rel_err_vs_true_mean']} is not within 0.1 % of the "
+                 f"unquantized round's {main['round1_err']}")
+        if not r["rel_gap_vs_plain_on_card"] <= 1e-3:
+            fail(f"(a) {name}: kernel and plain paths differ by {r['rel_gap_vs_plain_on_card']}")
+        steps = r["launches"].pop("srht_cg_step", 0)
+        if r["launches"] != {"fwht": N_CLIENTS, "srht_decode_sum": 1} or not 1 <= steps <= 8:
+            fail(f"(a) {name} launched {r['launches']} and {steps} CG steps, not K1 x "
+                 f"{N_CLIENTS}, K3 x 1 and 1-8 steps")
+        r["launches"]["srht_cg_step"] = steps
+    # Int8's rounding: card and CPU on the same values and uniforms, bitwise
+    chunks = collectives._chunk_clients(tree, D_BLOCK)[0]
+    vals = _spec(True, "auto").encode(seed, 0, chunks[0])["vals"]
+    del chunks
+    qkey = prand.fold_in(prand.key(seed, DEV), 0)
+    u = prand.uniform(prand.fold_in(qkey, quantizers._salt("vals")), tuple(vals.shape))
+    u_cpu = prand.uniform(prand.fold_in(qkey.cpu(), quantizers._salt("vals")),
+                          tuple(vals.shape))
+    q_card, s_card = quantizers.stochastic_round(vals, u)
+    q_cpu, s_cpu = quantizers.stochastic_round(vals.cpu(), u_cpu)
+    same = {"uniforms": torch.equal(u.cpu(), u_cpu), "int8": torch.equal(q_card.cpu(), q_cpu),
+            "scales": torch.equal(s_card.cpu(), s_cpu)}
+    log(f"codec (a): int8 rounding of client 0's {tuple(vals.shape)} values, card vs CPU on "
+        f"the same uniforms, bitwise: {same}; unquantized payload {UNQUANTIZED_BYTES} bytes a "
+        f"client; launches in the window {dict(window)}")
+    if not all(same.values()):
+        fail(f"(a) int8 rounding on the card differs from the CPU's: bitwise {same}")
+    return rows
+
+
+def _codec_sparse_proj(tree: dict, main: dict) -> dict:
+    """(b) SparseProj(k=64, s=16) with shared draws through the collective:
+    the bank's build, wall ms, CG steps (Gram applies), error, and the gap to
+    a rerun on the card (scatter-adds in an unspecified order)."""
+    from repro_torch.core import beta as beta_lib
+    from repro_torch.core import codec
+    from repro_torch.dist import collectives
+    from repro_torch.kernels import ops
+
+    spec = codec.SparseProj(k=K, d_block=D_BLOCK, s=SPARSE_S)
+    t0 = time.perf_counter()
+    beta_lib.sparse_eig_bank(N_CLIENTS, K, D_BLOCK, spec.nnz, device=DEV)
+    torch.cuda.synchronize()
+    bank_s = time.perf_counter() - t0
+    applies = [0]
+    gram_apply = ops.sparse_proj_gram_apply
+
+    def counted(*args):
+        applies[0] += 1
+        return gram_apply(*args)
+
+    ops.sparse_proj_gram_apply = counted
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()  # the sparse path's window opens here
+        (mean_tree, info, _), ms = _timed_round(lambda: collectives.compressed_mean_tree(
+            spec, CODEC_KEYS["b_sparse_proj"], tree, device=DEV))
+        launches = ops.launch_counts()  # ... and closes here
+        steps = applies[0]
+        out = _flat(mean_tree)
+        del mean_tree
+        (again, _, _), ms2 = _timed_round(lambda: collectives.compressed_mean_tree(
+            spec, CODEC_KEYS["b_sparse_proj"], tree, device=DEV))
+    finally:
+        ops.sparse_proj_gram_apply = gram_apply
+    row = {"round": "sparse_proj", "nnz": spec.nnz, "bank_build_s": bank_s, "wall_ms": ms,
+           "rerun_wall_ms": ms2, "cg_steps": steps,
+           "payload_bytes_per_client": info["payload_bytes_per_client"],
+           "rel_err_vs_true_mean": rel_l2(out, main["true_mean"]),
+           "rel_gap_vs_rerun_on_card": rel_l2(out, _flat(again)), "launches": dict(launches)}
+    log("codec (b) " + json.dumps(row))
+    if not torch.isfinite(out).all() or not row["rel_err_vs_true_mean"] < main["randk_err"]:
+        fail(f"(b) SparseProj's error {row['rel_err_vs_true_mean']} is not below Rand-k's "
+             f"expected {main['randk_err']}")
+    if not row["rel_gap_vs_rerun_on_card"] <= 1e-4:
+        fail(f"(b) SparseProj differs from its rerun by {row['rel_gap_vs_rerun_on_card']}")
+    if launches or steps < 1:
+        fail(f"(b) SparseProj launched {dict(launches)} and ran {steps} Gram applies; it runs "
+             "no kernel and its solve at least one step")
+    return row
+
+
+def _codec_error_feedback(tree: dict, main: dict) -> tuple:
+    """(c) top_k with error feedback over rounds on the fixed tree, keys
+    folded by round; the last round with clients 0-2 reporting. -> (rows,
+    round 1's top_k payload for (d))."""
+    from repro_torch.core import codec
+    from repro_torch.core import random as prand
+    from repro_torch.dist import collectives
+    from repro_torch.kernels import ops
+
+    pipe = codec.Pipeline([codec.TopK(k=K, d_block=D_BLOCK), codec.ErrorFeedback()])
+    chunks = collectives._chunk_clients(tree, D_BLOCK)[0]
+    true_mean, x_norm = main["true_mean"], float(chunks.double().norm())
+    ef, total, rows = None, torch.zeros_like(true_mean), []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()  # the error-feedback path's window opens here
+    for t in range(EF_ROUNDS):
+        key = prand.fold_in(prand.key(CODEC_KEYS["c_ef"], DEV), t)
+        participants = [0, 1, 2] if t == EF_ROUNDS - 1 else None
+        ef_in = ef
+        (mean_tree, _, ef), ms = _timed_round(lambda: collectives.compressed_mean_tree(
+            pipe, key, tree, ef_chunks=ef_in, participants=participants, device=DEV))
+        out = _flat(mean_tree)
+        del mean_tree
+        total += out
+        # the residual, recomputed: x with its top-k coordinates zeroed
+        gap = 0.0
+        for i in range(N_CLIENTS if participants is None else len(participants)):
+            x = chunks[i] if ef_in is None else chunks[i] + ef_in[i]
+            idx = torch.sort(x.abs(), dim=-1, descending=True, stable=True).indices[:, :K]
+            want = x.scatter(-1, idx, 0.0)
+            gap = max(gap, rel_l2(ef[i], want))
+            del x, idx, want
+        rows.append({"round": t + 1, "participants": participants, "wall_ms": ms,
+                     "rel_err_vs_true_mean": rel_l2(out, true_mean),
+                     "running_avg_rel_err": rel_l2(total / (t + 1), true_mean),
+                     "residual_norm_over_inputs": float(ef.double().norm()) / x_norm,
+                     "residual_rel_gap_vs_x_minus_self_decode": gap,
+                     "residual_bytes": ef.numel() * ef.element_size()})
+        if participants is not None:
+            rows[-1]["absent_row_bitwise"] = bool(torch.equal(ef[3], ef_in[3]))
+        del ef_in, out
+        log("codec (c) error feedback " + json.dumps(rows[-1]))
+    launches = ops.launch_counts()  # ... and closes here
+    payload, _ = codec.Pipeline([codec.TopK(k=K, d_block=D_BLOCK)]).encode_all(0, chunks[:1])
+    del chunks, ef
+    errs = [r["running_avg_rel_err"] for r in rows]
+    if not all(b < a for a, b in zip(errs, errs[1:])):
+        fail(f"(c) the running average's error does not fall every round: {errs}")
+    if max(r["residual_rel_gap_vs_x_minus_self_decode"] for r in rows) > 1e-6:
+        fail("(c) a residual is not x - self_decode within 1e-6")
+    if not rows[-1]["absent_row_bitwise"]:
+        fail("(c) the absent client's residual row changed")
+    if launches:
+        fail(f"(c) top_k with error feedback launched {dict(launches)}; it runs no kernel")
+    return rows, payload
+
+
+def _codec_entropy(tree: dict, top_k_payload) -> dict:
+    """(d) the entropy coder on the host: the first ENTROPY_CHUNKS chunks of
+    each client's int8 payload (the quantized round's) and of client 0's
+    top_k indices: exact coded size, round trip, coded over raw."""
+    from repro_torch.core import codec
+    from repro_torch.dist import collectives
+
+    pipe = codec.Pipeline([_spec(True, "auto"), codec.Int8Quant()])
+    chunks = collectives._chunk_clients(tree, D_BLOCK)[0]
+    payloads, _ = pipe.encode_all(CODEC_KEYS["a_quantized"], chunks)
+    del chunks
+    code, c = codec.EntropyCode(), ENTROPY_CHUNKS
+    t0 = time.perf_counter()
+    parts = [{name: v[i, :c].cpu() for name, v in payloads.arrays.items()}
+             for i in range(N_CLIENTS)]
+    parts.append({"idx": top_k_payload.arrays["idx"][0, :c].cpu()})
+    coded, raw = {"vals": 0, "idx": 0}, {"vals": 0, "idx": 0}
+    for arrays in parts:
+        schema = tuple(codec.ArraySpec(n, tuple(v.shape), str(v.dtype).removeprefix("torch."),
+                                       codec.VALUES) for n, v in arrays.items())
+        stream = code.encode_stream(arrays)
+        if code.coded_nbytes(arrays) != len(stream):
+            fail(f"(d) coded_nbytes {code.coded_nbytes(arrays)} != the stream's {len(stream)}")
+        back = code.decode_stream(stream, schema)
+        if any(not torch.equal(back[n], v) for n, v in arrays.items()):
+            fail(f"(d) the stream of {sorted(arrays)} does not decode to its arrays")
+        name = "idx" if "idx" in arrays else "vals"
+        coded[name] += code.coded_nbytes({name: arrays[name]})
+        raw[name] += arrays[name].numel() * arrays[name].element_size()
+    row = {"chunks": c, "int8_symbols": N_CLIENTS * c * K, "index_symbols": c * K,
+           "int8_coded_over_raw": coded["vals"] / raw["vals"],
+           "index_coded_over_raw": coded["idx"] / raw["idx"],
+           "seconds": time.perf_counter() - t0}
+    log("codec (d) entropy " + json.dumps(row))
+    return row
+
+
+def _small_codec_cases() -> dict:
+    """name -> pipeline of the codec layer on the small tree."""
+    from repro_torch.core import codec
+
+    kw = dict(k=16, d_block=256)
+    return {
+        "int8": codec.Pipeline([codec.RandProjSpatial(**kw), codec.Int8Quant()]),
+        "correlated": codec.Pipeline([codec.RandProjSpatial(**kw), codec.CorrelatedQuant()]),
+        "bf16": codec.Pipeline([codec.RandProjSpatial(**kw), codec.Bf16Quant()]),
+        "sparse_proj": codec.Pipeline([codec.SparseProj(s=SPARSE_S, **kw)]),
+        "ef_top_k": codec.Pipeline([codec.TopK(**kw), codec.ErrorFeedback()]),
+        "temporal_rand_k": codec.Pipeline([codec.RandK(**kw), codec.Temporal()]),
+        "build_entropy": codec.build("rand_proj_spatial", payload_dtype="int8",
+                                     entropy_code=True, **kw),
+    }
+
+
+def _small_codec_run(name, pipe, tree, dev) -> list:
+    """Every output of one small-tree case on ``dev``, as CPU tensors."""
+    from repro_torch.core import chunking, codec
+    from repro_torch.dist import collectives
+
+    if name == "temporal_rand_k":
+        chunks = collectives._chunk_clients(chunking.tree_unflatten(
+            tree, [leaf.to(dev) for leaf in chunking.tree_leaves(tree)]), 256)[0]
+        states, outs = pipe.init_client_state(N_CLIENTS, chunks.shape[1], device=dev), []
+        for t in range(3):
+            side = states.memory.mean(0)
+            payloads, states = pipe.encode_all(t, chunks + 0.1 * t, states=states)
+            outs += [pipe.decode(t, payloads, N_CLIENTS, side_info=side), states.memory]
+        return [o.cpu() for o in outs]
+    if name == "ef_top_k":
+        ef, outs = None, []
+        for t in range(3):
+            mean, _, ef = collectives.compressed_mean_tree(pipe, t, tree, ef_chunks=ef,
+                                                           device=dev)
+            outs += [_flat(mean), ef]
+        return [o.cpu() for o in outs]
+    mean, _, _ = collectives.compressed_mean_tree(pipe, 9, tree, device=dev)
+    outs = [_flat(mean).cpu()]
+    if name == "build_entropy":
+        chunks = collectives._chunk_clients(chunking.tree_unflatten(
+            tree, [leaf.to(dev) for leaf in chunking.tree_leaves(tree)]), 256)[0]
+        payloads, _ = pipe.encode_all(9, chunks)
+        outs.append(torch.tensor([float(codec.coded_payload_nbytes(pipe, payloads))]))
+    return outs
+
+
+def _codec_small(tree: dict) -> dict:
+    """(e) every new config on the small tree, card against CPU: relative
+    L2 of every output within 1e-4."""
+    gaps = {}
+    for name, pipe in _small_codec_cases().items():
+        got = _small_codec_run(name, pipe, tree, DEV)
+        want = _small_codec_run(name, pipe, tree, "cpu")
+        gaps[name] = max(rel_l2(g, w) for g, w in zip(got, want))
+        if not gaps[name] <= 1e-4 or not all(torch.isfinite(g).all() for g in got):
+            fail(f"(e) small tree, {name}: card and CPU differ by {gaps[name]} (limit 1e-4)")
+    log("codec (e) small tree: card vs CPU, largest relative L2 gap by config " + json.dumps(gaps))
+    return gaps
+
+
+def phase_codec(tree: dict, main: dict) -> dict:
+    """The codec layer at full width on the main path's tree: (a) the
+    quantized main path, (b) SparseProj, (c) error feedback, (d) entropy
+    coding of payload prefixes on the host, (e) the small tree card vs CPU."""
+    out = {"a": _codec_quantized(tree, main), "b": _codec_sparse_proj(tree, main)}
+    out["c"], top_k_payload = _codec_error_feedback(tree, main)
+    out["d"] = _codec_entropy(tree, top_k_payload)
+    out["e"] = _codec_small(small_tree())
+    return out
+
+
 def _device_ms_by_kernel(prof) -> tuple:
     """(device ms by kernel name, launches by kernel name)."""
     by_name, counts = {}, {}
@@ -827,16 +1153,21 @@ def _small_cases() -> dict:
     return cases
 
 
+def small_tree() -> dict:
+    """A small three-leaf tree for 4 clients, on the CPU."""
+    g = torch.Generator().manual_seed(5)
+    return {"w": torch.randn(N_CLIENTS, 40, 70, generator=g),
+            "b": torch.randn(N_CLIENTS, 333, generator=g),
+            "e": [torch.randn(N_CLIENTS, 7, 11, generator=g)]}
+
+
 def phase_small_reference() -> None:
     """A small three-leaf tree through every ported config on the card (the
     kernels where the config has them) and on the CPU (the plain versions):
     the draws are the same bits on both."""
     from repro_torch.dist import collectives
 
-    g = torch.Generator().manual_seed(5)
-    tree = {"w": torch.randn(N_CLIENTS, 40, 70, generator=g),
-            "b": torch.randn(N_CLIENTS, 333, generator=g),
-            "e": [torch.randn(N_CLIENTS, 7, 11, generator=g)]}
+    tree = small_tree()
     gaps = {}
     for name, (spec, limit) in _small_cases().items():
         got, _, _ = collectives.compressed_mean_tree(spec, 9, tree, device=DEV)
@@ -1351,6 +1682,7 @@ def main() -> int:
     tree = gradient_tree()
     launches, main_path = phase_main_path(tree)
     phase_baselines(tree, main_path)
+    phase_codec(tree, main_path)
     del main_path
     phase_profile(tree)
     del tree

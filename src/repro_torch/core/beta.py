@@ -12,8 +12,10 @@ memory, and caches it in memory and on disk under ``.cache/beta_torch/`` at
 the checkout root (or ``$REPRO_TORCH_BETA_CACHE``), never in the JAX
 package's ``.cache/beta``. The JAX bank samples rows with ``permutation``
 and the port with top-k scores: both are uniform k-subsets. ``projection=``
-picks the maps: "srht" or "gauss" (N(0, 1/d) entries, core.random.normal);
-the gauss bank's file carries the projection in its name.
+picks the maps: "srht", "gauss" (N(0, 1/d) entries, core.random.normal) or
+"sparse<nnz>" (SparseProj's very-sparse maps, core.random.sparse_draw, by
+``sparse_eig_bank``); the gauss and sparse banks' files carry the
+projection in their names.
 
 Closed forms, the fast paths and test oracles of the JAX package:
 rho = 0 (T == 1) gives tr(S) = nk exactly, so beta = d/k (``srht_beta``).
@@ -50,7 +52,13 @@ def default_trials(n: int, k: int) -> int:
     return int(max(64, min(512, (1 << 18) // max(nk, 1))))
 
 
-PROJECTIONS = ("srht", "gauss")
+PROJECTIONS = ("srht", "gauss", "sparse<nnz>")
+
+
+def _sparse_nnz(projection: str) -> int | None:
+    """nnz of a "sparse<nnz>" projection name, else None."""
+    tail = projection[len("sparse"):]
+    return int(tail) if projection.startswith("sparse") and tail.isdigit() else None
 
 
 def _bank_path(n: int, k: int, d: int, trials: int, seed: int, projection: str) -> str:
@@ -65,13 +73,19 @@ def _maps(ck: torch.Tensor, k: int, d: int, projection: str) -> torch.Tensor:
     if projection == "srht":
         draw = prand.srht_draw(ck, d, k)
         return kops.srht_rows_matrix(draw["signs"], draw["rows"], d)
+    nnz = _sparse_nnz(projection)
+    if nnz is not None:
+        # G = (1/sqrt(nnz)) scatter-add of the signs at the columns (repeats merge)
+        draw = prand.sparse_draw(ck, d, k, nnz)
+        g = torch.zeros(ck.shape + (k, d), device=ck.device)
+        return g.scatter_add_(-1, draw["cols"], draw["signs"]) * (1.0 / math.sqrt(nnz))
     return prand.normal(ck, (k, d)) / math.sqrt(d)
 
 
 def simulate_bank(n: int, k: int, d: int, trials: int, seed: int = 0,
                   device=None, projection: str = "srht") -> np.ndarray:
     """(trials, nk) float32 eigenvalues of A A^T, A the stack of n random maps."""
-    if projection not in PROJECTIONS:
+    if projection not in ("srht", "gauss") and _sparse_nnz(projection) is None:
         raise ValueError(f"no eigenvalue bank for projection {projection!r}; have {PROJECTIONS}")
     device = resolve_device(device)
     tkeys = prand.fold_in(prand.key(seed, device), torch.arange(trials, device=device))
@@ -105,6 +119,16 @@ def srht_eig_bank(n: int, k: int, d: int, trials: int | None = None, seed: int =
         os.replace(tmp, path)
     _BANKS[ck] = eigs
     return eigs
+
+
+def sparse_eig_bank(n: int, k: int, d: int, nnz: int, trials: int | None = None,
+                    seed: int = 0, device=None) -> np.ndarray:
+    """Eigenvalue bank of SparseProj's S: the srht bank's machinery over the
+    very-sparse maps, keyed (and cached) by the row density ``nnz`` too,
+    since the spectrum of S depends on it."""
+    if not 1 <= nnz <= d:
+        raise ValueError(f"nnz must be in [1, d={d}], got {nnz}")
+    return srht_eig_bank(n, k, d, trials, seed, device, projection=f"sparse{nnz}")
 
 
 def beta_fn_from_bank(bank, n: int, d: int, eps: float = 0.0):

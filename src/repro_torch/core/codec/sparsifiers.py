@@ -2,8 +2,8 @@
 
 A config is a frozen dataclass that carries only the fields its codec reads
 and doubles as the spec the registered codec functions consume. Every
-config of the JAX package but ``SparseProj`` is ported; ``RandProjSpatial``'s
-``use_pallas`` is named ``use_kernel``. ``payload_schema`` is each codec's
+config of the JAX package is ported; ``RandProjSpatial``'s ``use_pallas``
+is named ``use_kernel``. ``payload_schema`` is each codec's
 own declaration of its wire format, held against the tensors it produces by
 ``check_against_schema``.
 """
@@ -55,7 +55,8 @@ class Sparsifier:
     def self_decode(self, key, client_id, arrays, draws=None):
         if self.codec.self_decode is None:
             raise ValueError(f"sparsifier {self.name!r} has no per-client reconstruction "
-                             "(self_decode)")
+                             "(self_decode); it cannot drive error feedback or temporal "
+                             "memories")
         return self.codec.self_decode(self, key, client_id, arrays, draws=draws)
 
     def payload_schema(self, n_chunks: int) -> tuple:
@@ -167,6 +168,54 @@ class RandProjSpatial(RandK):
 
 
 @dataclasses.dataclass(frozen=True)
+class SparseProj(Sparsifier):
+    """Very-sparse random projection (Achlioptas 2003; Li et al. 2006) with
+    the paper's correlation-aware Gram-resolvent decode.
+
+    Each of the k rows of G holds ``nnz = round(d_block / s)`` signed entries
+    of magnitude 1/sqrt(nnz) at drawn columns (with replacement), so
+    E[G^T G] = (k/d) I as for the SRHT maps; ``s`` is the density divisor,
+    the encode costs O(k d / s). ``r_mode="est"`` pools its online R-hat
+    over every chunk (one scalar rho), so that decode is not shardable."""
+
+    name: ClassVar[str] = "sparse_proj"
+    k: int = 64
+    d_block: int = 1024
+    s: float = 16.0               # density divisor: nnz per row = d_block / s
+    shared_randomness: bool = True
+    transform: str = "avg"        # one|max|avg|opt
+    r_value: float | None = None
+    r_mode: str = "fixed"         # fixed | est (pooled online R-hat)
+    beta_trials: int | None = None
+    ridge: float = 1e-2           # eps of the resolvent solve (T + eps)
+    cg_iters: int = 64            # CG iteration cap of the decode
+
+    def __post_init__(self):
+        if self.s < 1.0:
+            raise ValueError(f"density divisor s must be >= 1, got {self.s}")
+
+    @property
+    def nnz(self) -> int:
+        """Signed entries per projection row: round(d_block / s), >= 1."""
+        return max(1, min(self.d_block, int(round(self.d_block / self.s))))
+
+    def payload_schema(self, n_chunks: int) -> tuple:
+        return _with_norm_sq((ArraySpec("vals", (n_chunks, self.k), "float32", VALUES),),
+                             self.r_mode, n_chunks)
+
+    @property
+    def self_decode_norm_inflation(self) -> float:
+        """Exact second moment of the with-replacement very-sparse decode,
+        E||(d/k) G^T G x||^2 = (d/k) F ||x||^2 with
+        F = 1 + (k-1)/d + 2(nnz-1)/(nnz d): the k rows are independent (the
+        (k-1)/d cross-row term) and duplicate columns add the fourth-moment
+        term 2(nnz-1)/(nnz d)."""
+        d, k, nnz = self.d_block, self.k, self.nnz
+        f = 1.0 + (k - 1.0) / d + 2.0 * (nnz - 1.0) / (nnz * d)
+        return (d / k) * f
+
+
+@dataclasses.dataclass(frozen=True)
 class TopK(Sparsifier):
     """Top-k (Shi et al. 2019): data-dependent indices DO travel."""
 
@@ -230,3 +279,10 @@ class Identity(Sparsifier):
 
     def payload_schema(self, n_chunks: int) -> tuple:
         return (ArraySpec("vals", (n_chunks, self.d_block), "float32", VALUES),)
+
+
+SPARSIFIERS: dict[str, type] = {
+    cls.name: cls
+    for cls in (RandK, RandKSpatial, RandProjSpatial, SparseProj, TopK, Wangni,
+                Induced, Identity)
+}

@@ -6,6 +6,7 @@ from . import (  # noqa: F401
     rand_k,
     rand_k_spatial,
     rand_proj_spatial,
+    sparse_proj,
     top_k,
     wangni,
 )

@@ -149,36 +149,61 @@ def _stacked_draws(spec, key, n, c, client_ids, chunk_offset, draws, device) -> 
     return _checked(spec, draws, (n, 1), (n, c))
 
 
-def _cg_resolvent_solve(y, rho, eps, signs, rows, iters, use_kernel="auto"):
-    """Batched CG for ((1 - rho + eps) I + rho S) x = y, one system per chunk,
-    S v = sum_i G_i^T G_i v with the draws ``signs`` (n, C|1, d) and ``rows``
-    (n, C|1, k). Each iteration is one ``srht_cg_step`` (one kernel launch
-    on the card), which updates x, r, p, rs and done in place.
+def _cg_solve(y, rho, eps, iters, step, dot):
+    """Batched CG for ((1 - rho + eps) I + rho S) x = y, one system per chunk.
+    ``step(x, r, p, rs, done, c0, c1, tol2)`` runs one iteration IN PLACE and
+    ``dot`` gives the row dot products (keepdim).
 
     Converged chunks are FROZEN (every update is a ``where(done, old, new)``),
     so running more iterations than a chunk needs changes none of its bits.
     That lets the loop test "all chunks done" on the host only every
     ``_CHECK_EVERY`` iterations, with the same result as the JAX loop's test
     on every iteration. y = 0 chunks are done at iteration 0 and return
-    exactly 0; the denominators are guarded so they cannot NaN. The row dot
-    products sum in ``row_dot_ref``'s fixed order, on both routes.
+    exactly 0; the denominators are guarded so they cannot NaN.
 
     y: (C, d); rho: 0-dim or (C,). -> (x, iterations), the count as the JAX
     loop reports it (iterations begun while some chunk was not done)."""
     c0 = 1.0 - rho + eps
     c1 = rho
-    ys = kref.row_dot_ref(y, y)
+    ys = dot(y, y)
     tol2 = (_CG_TOL * _CG_TOL) * ys
     x = torch.zeros_like(y)
     r, p, rs = y.clone(), y.clone(), ys
     done = ys <= tol2
     it = torch.zeros((), dtype=torch.int32, device=y.device)
-    for step in range(iters):
-        if step % _CHECK_EVERY == 0 and bool(done.all()):
+    for n_step in range(iters):
+        if n_step % _CHECK_EVERY == 0 and bool(done.all()):
             break
         it = it + (~done.all()).to(torch.int32)
-        kops.srht_cg_step(x, r, p, rs, done, c0, c1, tol2, signs, rows, use_kernel=use_kernel)
+        step(x, r, p, rs, done, c0, c1, tol2)
     return x, it
+
+
+def _cg_resolvent_solve(y, rho, eps, signs, rows, iters, use_kernel="auto"):
+    """The SRHT solve, S v = sum_i G_i^T G_i v with the draws ``signs``
+    (n, C|1, d) and ``rows`` (n, C|1, k): each iteration is one
+    ``srht_cg_step`` (one kernel launch on the card), its row dot products in
+    ``row_dot_ref``'s fixed order on both routes."""
+    def step(*state):
+        kops.srht_cg_step(*state, signs, rows, use_kernel=use_kernel)
+
+    return _cg_solve(y, rho, eps, iters, step, kref.row_dot_ref)
+
+
+def _row_sum_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a * b).sum(-1, keepdim=True)
+
+
+def cg_resolvent_solve_plain(y, rho, eps, apply_s, iters):
+    """The solve for any S given as ``apply_s(v)`` (C, d) -> (C, d), in plain
+    PyTorch (the JAX package's ``_cg_resolvent_solve``): SparseProj's decode."""
+    def step(x, r, p, rs, done, c0, c1, tol2):
+        new = kref.srht_cg_step_ref(x, r, p, rs, done, c0, c1, tol2, None, None,
+                                    gram_apply=lambda v, _s, _m: apply_s(v), dot=_row_sum_dot)
+        for dst, src in zip((x, r, p, rs, done), new):
+            dst.copy_(src)
+
+    return _cg_solve(y, rho, eps, iters, step, _row_sum_dot)
 
 
 def _bmv(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,14 @@ a key, a 31-bit word hashed per element with ``fold_in``:
   (``fold_in(fold_in(key, 0), j)``); its rows are ``subset`` of stream 1
   (``fold_in(key, 1)``);
 - ``normal``: standard normals by Box-Muller from streams 2 and 3;
-- ``uniform``: uniforms on [0, 1) from stream 4.
+- ``uniform``: uniforms on [0, 1) from stream 4 (wangni's Bernoulli draws;
+  the int8 quantizers' rounding dither, from ``fold_in(qkey, salt)``);
+- ``randint``: integers uniform on [0, hi), drawn with replacement, from
+  stream 5: ``(word * hi) >> 31`` of each 31-bit word, exactly uniform
+  when hi is a power of two (within hi / 2**31 otherwise);
+- ``rademacher``: float32 +-1, bit 15 of each word of stream 6;
+- ``sparse_draw``: the very-sparse projection's map, its columns
+  ``randint`` and its signs ``rademacher`` of the key, (k, nnz) each.
 
 A uniform takes the top 24 bits of its 31-bit word, times 2**-24: exact in
 float32 and strictly below 1, so ``uniform < p`` holds whenever p = 1.
@@ -44,7 +51,7 @@ import torch
 M31 = 0x7FFFFFFF
 _MUL_MIX = 0x45D9F3B      # < 2**27: a 31-bit word times it stays below 2**58
 _MUL_FOLD = 0x01000193    # < 2**25: a 31-bit word times it stays below 2**56
-_SIGNS, _ROWS, _NORMAL_R, _NORMAL_THETA, _UNIFORM = 0, 1, 2, 3, 4  # streams of a key
+_SIGNS, _ROWS, _NORMAL_R, _NORMAL_THETA, _UNIFORM, _RANDINT, _RADEMACHER = range(7)  # streams
 
 
 def _mix(h: torch.Tensor) -> torch.Tensor:
@@ -112,6 +119,30 @@ def uniform(keys: torch.Tensor, shape: tuple) -> torch.Tensor:
     m = int(np.prod(shape, dtype=np.int64))
     u = _unit(_words(fold_in(keys, _UNIFORM), m))
     return u.to(torch.float32).reshape(keys.shape + tuple(shape))
+
+
+def randint(keys: torch.Tensor, shape: tuple, hi: int) -> torch.Tensor:
+    """keys.shape + shape int64 integers uniform on [0, hi), with
+    replacement, from stream 5; 1 <= hi <= 2**31."""
+    if not 1 <= hi <= 1 << 31:
+        raise ValueError(f"need 1 <= hi <= 2**31, got {hi}")
+    m = int(np.prod(shape, dtype=np.int64))
+    words = _words(fold_in(keys, _RANDINT), m)
+    return ((words * hi) >> 31).reshape(keys.shape + tuple(shape))
+
+
+def rademacher(keys: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """keys.shape + shape float32 +-1 with equal odds, bit 15 of stream 6."""
+    m = int(np.prod(shape, dtype=np.int64))
+    bits = (_words(fold_in(keys, _RADEMACHER), m) >> 15) & 1
+    return (1 - 2 * bits).to(torch.float32).reshape(keys.shape + tuple(shape))
+
+
+def sparse_draw(keys: torch.Tensor, d: int, k: int, nnz: int) -> dict:
+    """One very-sparse projection map per key: {"signs": keys.shape + (k,
+    nnz) float32 +-1, "cols": keys.shape + (k, nnz) int64 columns in
+    [0, d), drawn with replacement, so they may repeat within a row}."""
+    return {"signs": rademacher(keys, (k, nnz)), "cols": randint(keys, (k, nnz), d)}
 
 
 def normal(keys: torch.Tensor, shape: tuple) -> torch.Tensor:

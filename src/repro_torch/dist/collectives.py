@@ -10,8 +10,13 @@ the pipeline's declared ledger.
 Partial participation (``participants``): only the named clients encode;
 the decode re-derives THEIR maps and normalises by how many reported.
 
-The GSPMD ``shardings``, the overlapped stream, the ownership-sharded decode
-and error feedback are still to port and raise NotImplementedError.
+Error feedback (a pipeline with an ``ErrorFeedback`` stage): each
+participant encodes its chunks plus its residual row of ``ef_chunks`` and
+keeps ``x - self_decode(payload)`` as the next residual; non-participants'
+rows carry over.
+
+The GSPMD ``shardings``, the overlapped stream and the ownership-sharded
+decode are still to port and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import torch
 
 from .. import resolve_device
 from ..core import chunking
-from ..core.codec import as_pipeline
+from ..core.codec import Payload, as_pipeline
 
 
 def _chunk_clients(tree, d_block: int):
@@ -87,21 +92,22 @@ def compressed_mean_tree(spec, key, tree, shardings=None, ef_chunks=None, partic
                          bank=None, device=None):
     """Cross-client compressed mean of a tree, on ``device``.
 
-    tree leaves: (n_clients, ...). Returns (mean_tree, info, None): the mean
-    drops the client axis, info is the byte accounting, and the third slot
-    (error-feedback residuals in the JAX package) is None.
+    tree leaves: (n_clients, ...). Returns (mean_tree, info, ef_next): the
+    mean drops the client axis, info is the byte accounting, and ef_next is
+    the updated (n_clients, C, d_block) residual, None unless the pipeline
+    has an ErrorFeedback stage. ``ef_chunks`` (n_clients, C, d_block) holds
+    the residuals going in (zeros when None); it is not changed.
 
-    ``participants``: index array / bool mask of reporting clients. ``draws``
-    (stacked (n, 1|C, ...), for the participants) and ``bank`` replace the
-    port's own draws and eigenvalue bank."""
+    ``participants``: index array / bool mask of reporting clients; only
+    their residual rows move. ``draws`` (stacked (n, 1|C, ...), for the
+    participants) and ``bank`` replace the port's own draws and eigenvalue
+    bank."""
     if shardings is not None:
         raise NotImplementedError("shardings= is not ported yet (ROADMAP A.9 dist/)")
     if overlap:
         raise NotImplementedError("overlap=True is not ported yet (ROADMAP A.7/A.9)")
     if ownership:
         raise NotImplementedError("ownership= is not ported yet (ROADMAP A.7/A.9)")
-    if ef_chunks is not None:
-        raise NotImplementedError("ef_chunks= (error feedback) is not ported yet (ROADMAP A.6)")
     del overlap_tile
     pipe = as_pipeline(spec)
     dev = resolve_device(device)
@@ -112,7 +118,20 @@ def compressed_mean_tree(spec, key, tree, shardings=None, ef_chunks=None, partic
         ids, x, n = None, chunks, n_total
     else:
         ids = _participant_ids(participants, n_total)
-        x, n = chunks[torch.as_tensor(ids, device=dev)], len(ids)
+        ids_t = torch.as_tensor(ids, device=dev)
+        x, n = chunks[ids_t], len(ids)
+    if pipe.has_ef:
+        ef_chunks = torch.zeros_like(chunks) if ef_chunks is None else ef_chunks.to(dev)
+        x = x + (ef_chunks if ids is None else ef_chunks[ids_t])
     payloads, _ = pipe.encode_all(key, x, client_ids=ids, draws=draws)
     mean_chunks = pipe.decode_payload(key, payloads, n, client_ids=ids, draws=draws, bank=bank)
-    return restore(mean_chunks), _info(pipe, n, d_flat, n_chunks, n_total=n_total), None
+    ef_next = None
+    if pipe.has_ef:
+        # x is this call's own tensor: it becomes the residual in place
+        for i, cid in enumerate(range(n) if ids is None else ids.tolist()):
+            x[i] -= pipe.self_decode(
+                key, cid, Payload({name: v[i] for name, v in payloads.arrays.items()},
+                                  payloads.meta),
+                draws=None if draws is None else {name: v[i] for name, v in draws.items()})
+        ef_next = x if ids is None else ef_chunks.index_copy(0, ids_t, x)
+    return restore(mean_chunks), _info(pipe, n, d_flat, n_chunks, n_total=n_total), ef_next

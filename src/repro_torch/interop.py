@@ -8,7 +8,8 @@ and bank across, as numpy arrays:
 - ``draws_from_numpy`` takes the ``_fused_draws`` layout of
   repro.core.estimators.rand_proj_spatial, one form a projection: srht
   signs (n, 1|C, d) and rows (n, 1|C, k); rows alone (Rand-k's indices,
-  the subsample projection); gauss g (n, 1|C, k, d). Rows become int64;
+  the subsample projection); gauss g (n, 1|C, k, d); and sparse_proj's
+  signs and cols (n, 1|C, k, nnz). Rows and cols become int64;
 - ``bank_from_numpy`` takes the (trials, nk) bank of repro.core.beta;
 - ``tree_from_numpy`` takes a tree (dicts, lists, tuples) of arrays;
 - ``params_from_numpy`` takes a model's ``init_params`` tree and
@@ -29,20 +30,26 @@ _DRAW_FORMS = {  # names -> (dtype, ndim) of each array
     ("rows", "signs"): {"signs": (np.float32, 3), "rows": (np.int64, 3)},
     ("rows",): {"rows": (np.int64, 3)},
     ("g",): {"g": (np.float32, 4)},
+    ("cols", "signs"): {"signs": (np.float32, 4), "cols": (np.int64, 4)},
 }
 
 
 def draws_from_numpy(draws: dict, device=None) -> dict:
     """Draw arrays -> tensors on ``device``: srht {"signs" (n, 1|C, d),
-    "rows" (n, 1|C, k)}, {"rows"} alone, or gauss {"g" (n, 1|C, k, d)}."""
+    "rows" (n, 1|C, k)}, {"rows"} alone, gauss {"g" (n, 1|C, k, d)}, or
+    sparse_proj {"signs", "cols" (n, 1|C, k, nnz)}."""
     dev = resolve_device(device)
     form = _DRAW_FORMS.get(tuple(sorted(draws)))
     if form is None:
         raise ValueError(f"draws must hold {[list(f) for f in _DRAW_FORMS]}, got {sorted(draws)}")
     arrs = {name: np.array(draws[name], dtype=dtype) for name, (dtype, _) in form.items()}
     lead = {a.shape[:2] for a in arrs.values()}
-    if any(a.ndim != form[name][1] for name, a in arrs.items()) or len(lead) != 1:
+    # sparse_proj's signs and cols are one (k, nnz) grid a draw
+    same = "cols" not in arrs or arrs["cols"].shape == arrs["signs"].shape
+    if any(a.ndim != form[name][1] for name, a in arrs.items()) or len(lead) != 1 or not same:
         want = ", ".join(f"{name} of {ndim} dims" for name, (_, ndim) in form.items())
+        if "cols" in arrs:
+            want += " of one shape (n, 1|C, k, nnz)"
         raise ValueError(f"draws must be {want}, all led by (n, 1|C), got "
                          f"{ {name: a.shape for name, a in arrs.items()} }")
     return {name: torch.from_numpy(a).to(dev) for name, a in arrs.items()}

@@ -17,6 +17,13 @@ On a CUDA tensor there is no fallback: a build or launch failure raises.
 ``flash_attention`` a flash-attention kernel chosen by dtype, both on the
 tensor cores: bf16 the wgmma kernel (csrc/flash_attention_tc.cu), float32
 the split-TF32 one (csrc/flash_attention.cu).
+
+The very-sparse projection ops (``sparse_proj_*``) are plain PyTorch on
+every device and take no ``use_kernel``: the JAX package pins them to XLA
+(no Pallas kernel stands behind them), and a gather, a reduce and a
+scatter-add are all they do. On CUDA tensors ``index_add_`` /
+``scatter_add_`` add in an unspecified order, so their results are not
+bitwise from run to run there.
 """
 from __future__ import annotations
 
@@ -205,3 +212,73 @@ def srht_rows_matrix(signs: torch.Tensor, rows: torch.Tensor, d: int) -> torch.T
     H[rows[r], :] * signs. signs (..., d), rows (..., k)."""
     h = torch.as_tensor(_ref.hadamard_matrix(d), device=signs.device)
     return (h[rows.long()] * signs[..., None, :]) * (1.0 / np.sqrt(d))
+
+
+# ------------------------------------------------- very-sparse projection ops
+# Shapes as the SparseProj codec (core/estimators/sparse_proj.py) gives them:
+# one client's chunks x (C, d) with its draws (1|C, k, nnz), or stacked
+# payloads (n, C, k) with stacked draws (n, 1|C, k, nnz). Each client's map is
+# applied to its own chunks, never broadcast to (n, C, ...): with shared draws
+# the columns index x once, and the client sum runs in client order.
+
+
+def _sparse_gather(x: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """x (C, d) at one client's columns (1|C, k, nnz). -> (C, k, nnz)"""
+    c = x.shape[0]
+    k, nnz = cols.shape[-2:]
+    if cols.shape[0] == 1:
+        t = torch.index_select(x, -1, cols.reshape(-1).long())
+    else:
+        t = torch.gather(x, -1, cols.reshape(c, k * nnz).long())
+    return t.reshape(c, k, nnz)
+
+
+def _sparse_scatter(z: torch.Tensor, signs: torch.Tensor, cols: torch.Tensor,
+                    d: int) -> torch.Tensor:
+    """One client's unscaled adjoint: z (C, k), draws (1|C, k, nnz). -> (C, d)"""
+    c, k = z.shape
+    nnz = cols.shape[-1]
+    contrib = (z[..., None] * signs).reshape(c, k * nnz)
+    out = torch.zeros((c, d), dtype=contrib.dtype, device=contrib.device)
+    if cols.shape[0] == 1:
+        return out.index_add_(-1, cols.reshape(-1).long(), contrib)
+    return out.scatter_add_(-1, cols.reshape(c, k * nnz).long(), contrib)
+
+
+def sparse_proj_encode(x: torch.Tensor, signs: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Very-sparse projection encode ``G x`` of one client's chunks, G's rows
+    ``nnz`` signed entries of magnitude 1/sqrt(nnz) at the drawn columns.
+
+    x: (C, d); signs, cols: (1|C, k, nnz). -> (C, k)"""
+    nnz = cols.shape[-1]
+    return (_sparse_gather(x, cols) * signs).sum(-1) * (1.0 / math.sqrt(nnz))
+
+
+def sparse_proj_adjoint(z: torch.Tensor, signs: torch.Tensor, cols: torch.Tensor,
+                        d: int) -> torch.Tensor:
+    """Sparse adjoint ``G^T z`` per client (no client sum: the decode's
+    pooled R-hat reads each client's).
+
+    z: (C, k) with draws (1|C, k, nnz), or (n, C, k) with (n, 1|C, k, nnz).
+    -> (C, d) or (n, C, d)"""
+    scale = 1.0 / math.sqrt(cols.shape[-1])
+    if z.dim() == 2:
+        return _sparse_scatter(z, signs, cols, d) * scale
+    out = torch.empty(z.shape[:2] + (d,), dtype=z.dtype, device=z.device)
+    for i in range(z.shape[0]):
+        out[i] = _sparse_scatter(z[i], signs[i], cols[i], d) * scale
+    return out
+
+
+def sparse_proj_gram_apply(v: torch.Tensor, signs: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Matrix-free ``S v = sum_i G_i^T G_i v``, the CG inner apply of the
+    SparseProj decode; the client sum in client order.
+
+    v: (C, d); signs, cols: (n, 1|C, k, nnz). -> (C, d)"""
+    d = v.shape[-1]
+    acc = None
+    for i in range(signs.shape[0]):
+        z = (_sparse_gather(v, cols[i]) * signs[i]).sum(-1)
+        t = _sparse_scatter(z, signs[i], cols[i], d)
+        acc = t if acc is None else acc + t
+    return acc * (1.0 / cols.shape[-1])

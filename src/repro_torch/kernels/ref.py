@@ -83,6 +83,13 @@ def srht_scatter_ref(z: torch.Tensor, rows: torch.Tensor, d: int) -> torch.Tenso
     return full.scatter_(-1, rows, z)
 
 
+def srht_decode_ref(u: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,
+                    d: int) -> torch.Tensor:
+    """SRHT adjoint ``G^T u = (1/sqrt(d)) signs * (H scatter_rows(u))``;
+    u (..., k), signs (d,), rows (k,). -> (..., d)"""
+    return fwht_ref(srht_scatter_ref(u, rows, d)) * (signs * (1.0 / np.sqrt(d)))
+
+
 def fwht_rowsigns_ref(
     x: torch.Tensor,
     signs: torch.Tensor | None,
@@ -154,9 +161,10 @@ def row_dot_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def srht_cg_step_ref(x, r, p, rs, done, c0, c1, tol2, signs, mask, *,
-                     gram_apply=srht_gram_apply_ref) -> tuple:
+                     gram_apply=srht_gram_apply_ref, dot=row_dot_ref) -> tuple:
     """One iteration of the batched CG for ((c0) I + (c1) S) x = y, one
-    system per chunk, S v = ``gram_apply(v, signs, mask)``.
+    system per chunk, S v = ``gram_apply(v, signs, mask)``, row dot
+    products by ``dot``.
 
     x, r, p: (C, d); rs, tol2: (C, 1); done: (C, 1) bool; c0, c1: 0-dim or
     (C,); signs, mask: (n, C|1, d). Chunks already done keep every bit (each
@@ -167,12 +175,52 @@ def srht_cg_step_ref(x, r, p, rs, done, c0, c1, tol2, signs, mask, *,
     zero = torch.zeros((), dtype=p.dtype, device=p.device)
     one = torch.ones((), dtype=p.dtype, device=p.device)
     ap = col(c0) * p + col(c1) * gram_apply(p, signs, mask)
-    pap = row_dot_ref(p, ap)
+    pap = dot(p, ap)
     alpha = torch.where(done, zero, rs / torch.where(pap > 0, pap, one))
     x2 = torch.where(done, x, x + alpha * p)
     r2 = torch.where(done, r, r - alpha * ap)
-    rs2 = torch.where(done, rs, row_dot_ref(r2, r2))
+    rs2 = torch.where(done, rs, dot(r2, r2))
     done2 = done | (rs2 <= tol2)
     bet = torch.where(done2, zero, rs2 / torch.where(rs > 0, rs, one))
     p2 = torch.where(done2, p, r2 + bet * p)
     return x2, r2, p2, rs2, done2
+
+
+# ---------------------------------------------- very-sparse projection oracles
+# A row of G holds ``nnz`` signed entries at drawn columns, so the encode is a
+# gather and reduce, the adjoint a scatter-add and the Gram apply the two
+# composed. The 1/sqrt(nnz) and 1/nnz scales are applied by kernels.ops as
+# post-multiplies, as in the JAX package. Columns are drawn with replacement
+# and may repeat within a row: the scatter-ADD merges every repeat.
+
+
+def sparse_encode_ref(x: torch.Tensor, signs: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Unscaled ``out[..., r] = sum_t signs[..., r, t] * x[..., cols[..., r, t]]``.
+
+    x: (..., d); signs, cols: (..., k, nnz), leading dims broadcast. -> (..., k)"""
+    lead = torch.broadcast_shapes(x.shape[:-1], cols.shape[:-2], signs.shape[:-2])
+    k, nnz = cols.shape[-2:]
+    xb = torch.broadcast_to(x, lead + x.shape[-1:])
+    cb = torch.broadcast_to(cols.long(), lead + (k, nnz)).reshape(*lead, k * nnz)
+    t = torch.gather(xb, -1, cb).reshape(*lead, k, nnz)
+    return (t * signs).sum(-1)
+
+
+def sparse_scatter_add_ref(z: torch.Tensor, signs: torch.Tensor, cols: torch.Tensor,
+                           d: int) -> torch.Tensor:
+    """Unscaled adjoint ``out[..., cols[..., r, t]] += signs[..., r, t] * z[..., r]``.
+
+    z: (..., k); signs, cols: (..., k, nnz), leading dims broadcast. -> (..., d)"""
+    contrib = z[..., None] * signs
+    lead = contrib.shape[:-2]
+    m = contrib.shape[-2] * contrib.shape[-1]
+    cf = torch.broadcast_to(cols.long(), contrib.shape).reshape(*lead, m)
+    full = torch.zeros(lead + (d,), dtype=contrib.dtype, device=contrib.device)
+    return full.scatter_add_(-1, cf, contrib.reshape(*lead, m))
+
+
+def sparse_gram_apply_ref(v: torch.Tensor, signs: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Unscaled matrix-free ``sum_i G_i^T G_i v``, the client sum in client
+    order. v: (C, d); signs, cols: (n, C|1, k, nnz). -> (C, d)"""
+    z = sparse_encode_ref(v[None], signs, cols)
+    return client_sum(sparse_scatter_add_ref(z, signs, cols, v.shape[-1]))

@@ -126,6 +126,6 @@ def test_compressed_mean_tree_matches_jax(case):
 def test_unported_routes_raise():
     tree = interop.tree_from_numpy(_tree(2, 4), "cpu")
     spec = tcodec.RandProjSpatial(k=K, d_block=D_BLOCK)
-    for kw in ({"overlap": True}, {"ownership": 2}, {"ef_chunks": torch.zeros(1)}):
+    for kw in ({"overlap": True}, {"ownership": 2}):
         with pytest.raises(NotImplementedError):
             tcoll.compressed_mean_tree(spec, 0, tree, device="cpu", **kw)

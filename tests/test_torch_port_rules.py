@@ -5,14 +5,16 @@
 - on a CPU tensor the ops run the plain versions, ``use_kernel="force"``
   raises, and the CUDA build is never reached, by the estimator or by a
   model's prefill;
-- what is not ported yet (sparse_proj, the quantize stage, error feedback,
-  the ownership decode, Mamba layers, the MoE FFN) raises.
+- what is not ported yet (the ownership decode, the overlapped stream,
+  GSPMD shardings, Mamba layers, the MoE FFN) raises.
 """
 from __future__ import annotations
 
 import ast
 import pathlib
 import types
+
+import numpy as np
 
 import pytest
 import torch
@@ -21,7 +23,8 @@ import repro_torch
 from repro_torch.core import codec
 from repro_torch.core.estimators import base as est_base
 from repro_torch.dist import collectives
-from repro_torch import configs
+from repro_torch import configs, interop
+from repro_torch.core import beta
 from repro_torch.kernels import _build, ops
 from repro_torch.launch import serve
 from repro_torch.models import transformer
@@ -59,6 +62,28 @@ def test_default_device_raises_without_cuda(monkeypatch):
     tree = {"w": torch.zeros(2, 64)}
     with pytest.raises(RuntimeError, match="CUDA"):
         collectives.compressed_mean_tree(codec.RandProjSpatial(k=8, d_block=64), 0, tree)
+
+
+_NEW_ENTRY_POINTS = {
+    "sparse_proj_mean": lambda: codec.Pipeline([codec.SparseProj(k=4, d_block=32)]).mean_estimate(
+        0, torch.zeros(2, 1, 32)),
+    "int8_mean": lambda: codec.build("rand_k", k=4, d_block=32, payload_dtype="int8")
+    .mean_estimate(0, torch.zeros(2, 1, 32)),
+    "ef_collective": lambda: collectives.compressed_mean_tree(
+        codec.build("top_k", k=4, d_block=32, ef=True), 0, {"w": torch.zeros(2, 32)}),
+    "client_state": lambda: codec.build("rand_k", k=4, d_block=32, temporal=True)
+    .init_client_state(2, 1),
+    "sparse_bank": lambda: beta.sparse_eig_bank(2, 4, 32, 2, trials=2, seed=123),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_NEW_ENTRY_POINTS))
+def test_codec_entry_points_need_cuda_without_device(monkeypatch, name):
+    """The codec layer's entry points run on the card unless asked for the
+    CPU: without CUDA they raise, never fall back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _NEW_ENTRY_POINTS[name]()
 
 
 def _op_calls(x, v, signs, rows):
@@ -108,7 +133,9 @@ def test_force_on_cpu_tensor_raises(op):
     codec.RandProjSpatial(k=4, d_block=32),
     codec.RandK(k=4, d_block=32),
     codec.RandProjSpatial(k=4, d_block=32, decode_method="gram", beta_trials=64),
-], ids=["fused", "rand_k", "gram"])
+    codec.SparseProj(k=4, d_block=32, s=4.0, beta_trials=64),
+    codec.build("rand_proj_spatial", k=4, d_block=32, payload_dtype="int8"),
+], ids=["fused", "rand_k", "gram", "sparse_proj", "fused_int8"])
 def test_cpu_path_never_touches_the_kernel_build(monkeypatch, spec):
     def no_build():
         raise AssertionError("the CPU path reached the CUDA build")
@@ -116,26 +143,36 @@ def test_cpu_path_never_touches_the_kernel_build(monkeypatch, spec):
     monkeypatch.setattr(_build, "build", no_build)
     before = ops.launch_counts()
     xs = torch.randn(3, 2, 32)
-    pipe = codec.Pipeline([spec])
+    pipe = codec.as_pipeline(spec)
     out = pipe.mean_estimate(0, xs, device="cpu")
     assert out.shape == (2, 32) and torch.isfinite(out).all()
     assert ops.launch_counts() == before
 
 
 def test_unported_options_raise():
-    with pytest.raises(KeyError, match="sparse_proj"):
-        est_base.get("sparse_proj")
-    with pytest.raises(NotImplementedError, match="quantize"):
-        codec.Pipeline([codec.RandK(k=4, d_block=32), types.SimpleNamespace(role="quantize")])
+    with pytest.raises(KeyError, match="unknown estimator"):
+        est_base.get("rand_q")
+    with pytest.raises(TypeError, match="not a codec stage"):
+        codec.Pipeline([codec.RandK(k=4, d_block=32), types.SimpleNamespace(role="compress")])
     tree = {"w": torch.zeros(2, 64)}
     spec = codec.RandK(k=8, d_block=64)
-    with pytest.raises(NotImplementedError, match="ef_chunks"):
-        collectives.compressed_mean_tree(spec, 0, tree, ef_chunks=torch.zeros(2, 1, 64),
-                                         device="cpu")
-    with pytest.raises(NotImplementedError, match="ownership"):
-        collectives.compressed_mean_tree(spec, 0, tree, ownership=2, device="cpu")
+    for kw, what in (({"ownership": 2}, "ownership"), ({"overlap": True}, "overlap"),
+                     ({"shardings": object()}, "shardings")):
+        with pytest.raises(NotImplementedError, match=what):
+            collectives.compressed_mean_tree(spec, 0, tree, device="cpu", **kw)
     with pytest.raises(ValueError):
         ops.fwht(torch.randn(2, 8), use_kernel="sometimes")
+
+
+def test_draws_from_numpy_takes_sparse_draws():
+    signs = np.ones((3, 1, 4, 5), np.float32)
+    cols = np.zeros((3, 1, 4, 5), np.int32)
+    got = interop.draws_from_numpy({"signs": signs, "cols": cols}, "cpu")
+    assert got["cols"].dtype == torch.int64 and got["signs"].shape == (3, 1, 4, 5)
+    with pytest.raises(ValueError, match="one shape"):
+        interop.draws_from_numpy({"signs": signs, "cols": cols[..., :4]}, "cpu")
+    with pytest.raises(ValueError, match="4 dims"):
+        interop.draws_from_numpy({"signs": signs[0], "cols": cols[0]}, "cpu")
 
 
 def _tiny(arch: str, **over):
