@@ -48,6 +48,24 @@ result):
    over the first 2,048 chunks of each client's int8 payload and of a top_k
    payload's indices: exact coded size, bitwise round trip, coded over raw;
    (e) every new config on a small tree, card against CPU within 1e-4;
+   then the federated round driver (``phase_fl``, lines ``fl (a)``-``fl (f)``)
+   on the dme task at the same width (4 clients x 129,100,224 values, rho
+   0.9, ``codec.build("rand_proj_spatial", k=64, d_block=1024,
+   transform="avg")``), each round's wall ms (CUDA events from its client
+   vectors to its task step) beside the ms of the encode_all and decode
+   calls inside it: (a) 3 sync rounds, counts zeroed just before them and
+   read just after: 4 x 32,275,200 bytes a round, K1 x 4, K3 x 1 and 1-8 CG
+   steps a round and no K4 alone, mse below Rand-k's Eq. 1, gap to the plain
+   path <= 1e-3; (b) 4 async rounds with ``Cohort(4, dropout=0.25)`` and
+   round seed 9 (stragglers in rounds 0-2): bytes = fresh survivors' +
+   stale bytes, stragglers admitted, finite means, mse_pop beside
+   staleness 0; (c) (a) again with the overlapped stream (tiles of 8,192
+   chunks) and with 4 owners: History and the final state bitwise (a)'s,
+   the ownership ledger; (d) temporal against spatial on drift at
+   tests/test_fl.py's sizes (ratio < 0.7, equal ledgers); (e) the CLI's
+   ``--compare`` on power_iteration, 20 rounds; (f) a small dme run on the
+   card and the CPU (ledgers equal, floats within 1e-4, top_k's state
+   bitwise);
 5. profile one more shared-randomness round (torch.profiler): device time
    by kernel against the round's wall time; every K1, K3 and CG step launch
    in it must be the register-resident butterfly kernel, by name;
@@ -1049,6 +1067,346 @@ def phase_codec(tree: dict, main: dict) -> dict:
     return out
 
 
+# ----------------------------------------------------------- phase_fl (FL)
+
+FL_D = MAMBA2_130M_PARAMS   # the dme task's width: mamba2-130m's parameter count
+FL_BYTES = UNQUANTIZED_BYTES  # a client's Rand-Proj-Spatial payload at that width
+FL_SYNC_ROUNDS, FL_ASYNC_ROUNDS = 3, 4
+FL_ASYNC_SEED = 9     # Cohort(4, dropout=0.25): stragglers in rounds 0-2, admitted in 1-3
+FL_OVERLAP_TILE, FL_OWNERS = 8192, 4
+FL_SMALL_D = 256      # (f): the card against the CPU
+
+
+def _event():
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _clocked(task, marks: list):
+    """``task`` with a CUDA event and the launch counts taken where each
+    round starts (its client vectors) and ends (its task step)."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+
+    def client_vectors(state, key):
+        marks.append(("start", _event(), ops.launch_counts()))
+        return task.client_vectors(state, key)
+
+    def step(state, mean):
+        out = task.step(state, mean)
+        marks.append(("end", _event(), ops.launch_counts()))
+        return out
+
+    return dataclasses.replace(task, client_vectors=client_vectors, step=step)
+
+
+def _clock_codec(marks: list):
+    """Patch ``Pipeline.encode_all`` and ``Pipeline.decode_payload`` (which
+    every decode route calls: whole, streamed tile, owner slice) to append
+    (name, event before, event after) to ``marks``; -> the restore function."""
+    from repro_torch.core import codec
+
+    saved = {name: getattr(codec.Pipeline, name) for name in ("encode_all", "decode_payload")}
+
+    def timed(name, fn):
+        def call(self, *args, **kw):
+            before = _event()
+            out = fn(self, *args, **kw)
+            marks.append((name, before, _event()))
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(codec.Pipeline, name, timed(name, fn))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(codec.Pipeline, name, fn)
+    return restore
+
+
+def _fl_rounds(task, spec, cohort=None, clocked=False, **cfg) -> tuple:
+    """(final state, History, per-round rows) of ``run_rounds`` on the card;
+    with ``clocked``, each row has the round's wall ms (CUDA events from its
+    client vectors to its task step), the ms of the encode_all and decode
+    calls inside it, and its kernel launches."""
+    from repro_torch.fl import rounds as fl_rounds
+
+    marks: list = []
+    restore = _clock_codec(marks) if clocked else None
+    try:
+        state, hist = fl_rounds.run_rounds(_clocked(task, marks) if clocked else task, spec,
+                                           cohort, fl_rounds.RoundConfig(**cfg), device=DEV)
+        torch.cuda.synchronize()
+    finally:
+        if restore:
+            restore()
+    rows, cur = [], None
+    for mark in marks:
+        if mark[0] == "start":
+            cur = {"start": mark[1], "counts": mark[2], "codec_ms": 0.0, "calls": []}
+        elif mark[0] == "end":
+            launches = {k: v - cur["counts"].get(k, 0) for k, v in mark[2].items()
+                        if v != cur["counts"].get(k, 0)}
+            rows.append({"round": len(rows), "wall_ms": cur["start"].elapsed_time(mark[1]),
+                         "encode_decode_ms": cur["codec_ms"], "calls": cur["calls"],
+                         "launches": launches})
+        else:
+            cur["codec_ms"] += mark[1].elapsed_time(mark[2])
+            cur["calls"].append(mark[0])
+    for r in rows:
+        r["fl_overhead_ms"] = r["wall_ms"] - r["encode_decode_ms"]
+    return state, hist, rows
+
+
+def _fl_spec(use_kernel: str = "auto", **kw):
+    from repro_torch.core import codec
+
+    return codec.build("rand_proj_spatial", k=K, d_block=D_BLOCK, transform="avg",
+                       use_kernel=use_kernel, **kw)
+
+
+def _fl_sync(task, smi: str) -> dict:
+    """(a) 3 sync rounds at full width: ledger, launches a round, error
+    against Rand-k's Eq. 1, gap to the plain path; round wall ms beside the
+    encode_all + decode inside it."""
+    from repro_torch.kernels import ops
+
+    xs = task.aux["xs"]
+    sumsq = sum(float((xs[i].double() ** 2).sum()) for i in range(N_CLIENTS))
+    randk_mse = (D_BLOCK / K - 1.0) * sumsq / N_CLIENTS**2  # Eq. 1
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()  # the FL path's window opens here
+    state, hist, rows = _fl_rounds(task, _fl_spec(), clocked=True, n_rounds=FL_SYNC_ROUNDS)
+    window = ops.launch_counts()  # ... and closes here
+    p_state, p_hist, _ = _fl_rounds(task, _fl_spec("never"), n_rounds=FL_SYNC_ROUNDS)
+    gap = rel_l2(state["mean"], p_state["mean"])
+    mse_gap = max(abs(a - b) / b for a, b in zip(hist.mse, p_hist.mse))
+    for r, mse, nbytes in zip(rows, hist.mse, hist.bytes):
+        r.update(mse=mse, bytes=nbytes, randk_expected_mse=randk_mse)
+        del r["calls"]
+        log(f"fl (a) sync round [{smi}] " + json.dumps(r))
+    out = {"rows": rows, "mse": hist.mse, "state": state, "randk_mse": randk_mse,
+           "rel_gap_vs_plain_on_card": gap, "mse_rel_gap_vs_plain": mse_gap,
+           "launches": dict(window)}
+    log(f"fl (a): gap to the plain path on the card {gap} (mse {mse_gap}); launches in the "
+        f"window {dict(window)}")
+    # where one FL round's time goes (torch.profiler), beside the bare
+    # collective's round that phase_profile reads on the same shapes
+    by_name, wall_ms, _ = _profiled(lambda: _fl_rounds(task, _fl_spec(), n_rounds=1))
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    out["profile"] = {"wall_ms": wall_ms, "device_ms": device_ms,
+                      "idle_share": 1.0 - device_ms / wall_ms,
+                      "top_device_ms": [[name[:160], ms] for name, ms in top]}
+    log(f"fl (a) profiled round [{smi}] " + json.dumps(out["profile"]))
+    if hist.bytes != [N_CLIENTS * FL_BYTES] * FL_SYNC_ROUNDS:
+        fail(f"(a) bytes a round {hist.bytes}, not {N_CLIENTS} x {FL_BYTES}")
+    for r in rows:
+        launched = dict(r["launches"])
+        steps = launched.pop("srht_cg_step", 0)
+        if launched != {"fwht": N_CLIENTS, "srht_decode_sum": 1} or not 1 <= steps <= 8:
+            fail(f"(a) round {r['round']} launched {r['launches']}: not K1 x {N_CLIENTS}, "
+                 "K3 x 1 and 1-8 CG steps, and no K4 alone")
+        if not r["mse"] < randk_mse:
+            fail(f"(a) round {r['round']}: mse {r['mse']} is not below Rand-k's {randk_mse}")
+    if not (gap <= 1e-3 and mse_gap <= 1e-3) or not torch.isfinite(state["mean"]).all():
+        fail(f"(a) the kernel and plain rounds differ by {gap} (mse {mse_gap})")
+    return out
+
+
+def _fl_async(task, smi: str) -> dict:
+    """(b) 4 async rounds at full width, Cohort(4, dropout=0.25): the ledger
+    identity, admitted stragglers, finite means; mse_pop beside staleness 0."""
+    from repro_torch.fl import Cohort
+
+    cohort = Cohort(N_CLIENTS, dropout=0.25)
+    runs = {}
+    for staleness in (1, 0):
+        state, hist, rows = _fl_rounds(task, _fl_spec(), cohort, clocked=True,
+                                       n_rounds=FL_ASYNC_ROUNDS, async_rounds=True,
+                                       staleness=staleness, seed=FL_ASYNC_SEED)
+        runs[staleness] = hist
+        for r in rows:
+            t = r["round"]
+            r.update(staleness=staleness, survivors=hist.n_survivors[t],
+                     n_stale=hist.n_stale[t], bytes=hist.bytes[t],
+                     stale_bytes=hist.stale_bytes[t], mse=hist.mse[t], mse_pop=hist.mse_pop[t])
+            del r["calls"], r["launches"]
+            log(f"fl (b) async round [{smi}] " + json.dumps(r))
+        if not (all(np.isfinite(hist.mse + hist.mse_pop)) and torch.isfinite(state["mean"]).all()):
+            fail(f"(b) staleness {staleness}: a mean is not finite")
+    hist = runs[1]
+    fresh = [s * FL_BYTES for s in hist.n_survivors]
+    if hist.bytes != [f + st for f, st in zip(fresh, hist.stale_bytes)]:
+        fail(f"(b) bytes {hist.bytes} != fresh {fresh} + stale {hist.stale_bytes}")
+    if not any(n > 0 for n in hist.n_stale[1:]) or runs[0].n_stale != [0] * FL_ASYNC_ROUNDS:
+        fail(f"(b) admitted stragglers by round {hist.n_stale} (staleness 0: "
+             f"{runs[0].n_stale}); seed {FL_ASYNC_SEED} has stragglers in rounds 0-2")
+    out = {"mse_pop": hist.mse_pop, "mse_pop_staleness0": runs[0].mse_pop,
+           "n_stale": hist.n_stale, "stale_bytes": hist.stale_bytes}
+    log(f"fl (b) [{smi}] " + json.dumps(out))
+    return out
+
+
+def _fl_overlap_ownership(task, sync: dict, smi: str) -> dict:
+    """(c) (a) again with the overlapped stream and with 4 owners: History
+    and the final state bitwise equal to (a)'s; the ownership ledger."""
+    from repro_torch.dist import collectives
+
+    out = {}
+    for name, cfg in (("overlap", dict(overlap=True, overlap_tile=FL_OVERLAP_TILE)),
+                      ("ownership", dict(ownership=True, n_owners=FL_OWNERS))):
+        state, hist, rows = _fl_rounds(task, _fl_spec(), clocked=True,
+                                       n_rounds=FL_SYNC_ROUNDS, **cfg)
+        same = hist.mse == sync["mse"] and torch.equal(state["mean"], sync["state"]["mean"])
+        out[name] = {"bitwise": same, "wall_ms": [r["wall_ms"] for r in rows],
+                     "encode_decode_ms": [r["encode_decode_ms"] for r in rows],
+                     "launches": [r["launches"] for r in rows],
+                     "intra_pod_bytes": hist.intra_pod_bytes}
+        log(f"fl (c) {name} [{smi}] " + json.dumps(out[name]))
+        if not same:
+            fail(f"(c) {name}: mse {hist.mse} and the final state are not bitwise (a)'s "
+                 f"{sync['mse']}")
+    n_chunks = -(-FL_D // D_BLOCK)
+    traffic = collectives.intra_pod_traffic(
+        _fl_spec(), N_CLIENTS, n_chunks, FL_OWNERS,
+        plan=collectives.ownership_plan(FL_OWNERS, n_chunks, FL_OWNERS))
+    out["traffic"] = traffic
+    log(f"fl (c) modelled intra-pod bytes a round at {FL_OWNERS} owners [{smi}] "
+        + json.dumps(traffic))
+    if out["ownership"]["intra_pod_bytes"] != [traffic["intra_pod_bytes_ownership"]] * \
+            FL_SYNC_ROUNDS or not traffic["intra_pod_bytes_ownership"] > 0:
+        fail(f"(c) ownership ledgered {out['ownership']['intra_pod_bytes']}, not the "
+             f"ownership column {traffic['intra_pod_bytes_ownership']} a round")
+    return out
+
+
+def _fl_temporal(smi: str) -> dict:
+    """(d) temporal against spatial on drift at tests/test_fl.py's sizes
+    (n k = d, the regime where the broadcast delta decodes), on the card."""
+    from repro_torch.core import codec
+    from repro_torch.fl import get_task
+
+    task = get_task("drift", device=DEV, n_clients=8, d=128, rho=0.95, omega=0.03)
+    spec = codec.build("rand_proj_spatial", k=16, d_block=128, transform="avg")
+    _, h_sp, _ = _fl_rounds(task, spec, n_rounds=20)
+    _, h_tm, _ = _fl_rounds(task, spec, n_rounds=20, temporal=True)
+    out = {"spatial_mse_2_19": float(np.mean(h_sp.mse[2:])),
+           "temporal_mse_2_19": float(np.mean(h_tm.mse[2:])), "bytes": h_sp.total_bytes}
+    out["ratio"] = out["temporal_mse_2_19"] / out["spatial_mse_2_19"]
+    log(f"fl (d) temporal vs spatial on drift [{smi}] " + json.dumps(out))
+    if h_sp.bytes != h_tm.bytes or not out["ratio"] < 0.7:
+        fail(f"(d) temporal/spatial mse {out['ratio']} (limit 0.7), ledgers "
+             f"{h_tm.total_bytes} / {h_sp.total_bytes}")
+    return out
+
+
+def _fl_cli(smi: str) -> dict:
+    """(e) the CLI's --compare on power_iteration, 20 rounds, at its default
+    sizes (d = 1024, 4000 samples, 10 clients), on the card."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.fl import run as fl_run
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = os.path.join(tmp, "metrics.json")
+        t0 = time.perf_counter()
+        if fl_run.main(["--task", "power_iteration", "--compare", "--rounds", "20",
+                        "--metrics-json", path]) != 0:
+            fail("(e) the CLI's --compare did not exit 0")
+        seconds = time.perf_counter() - t0
+        with open(path) as f:
+            data = json.load(f)
+    obs.disable()
+    obs.reset()
+    out = {r["estimator"]: {"final_eig_err": r["rounds"][-1]["metric"],
+                            "total_bytes": sum(x["bytes"] for x in r["rounds"])}
+           for r in data["runs"]}
+    log(f"fl (e) CLI --compare power_iteration, 20 rounds, {seconds:.1f} s on "
+        f"{data['run']['device']} [{smi}] " + json.dumps(out))
+    if len(out) != 4 or not all(np.isfinite(v["final_eig_err"]) for v in out.values()):
+        fail(f"(e) the CLI's compare gave {out}")
+    return out
+
+
+def _fl_small_configs() -> dict:
+    from repro_torch.core import codec
+
+    return {
+        "rps_avg": codec.build("rand_proj_spatial", k=16, d_block=64, transform="avg"),
+        "rps_wavg": codec.build("rand_proj_spatial", k=16, d_block=64, transform="wavg"),
+        "top_k_ef_temporal": codec.build("top_k", k=8, d_block=64, ef=True, temporal=True),
+    }
+
+
+def _fl_card_vs_cpu(smi: str) -> dict:
+    """(f) a small FL run on the card and on the CPU: ledgers equal, floats
+    within 1e-4, top_k's final mean and client state bitwise (no reduction
+    order differs there)."""
+    from repro_torch.fl import get_task, run_rounds, RoundConfig
+
+    gaps = {}
+    for name, spec in _fl_small_configs().items():
+        got, want = ({"hist": h, "state": s} for s, h in [
+            run_rounds(get_task("dme", device=dev, n_clients=N_CLIENTS, d=FL_SMALL_D), spec,
+                       cfg=RoundConfig(n_rounds=4), device=dev) for dev in (DEV, "cpu")])
+        hg, hw = got["hist"], want["hist"]
+        for col in ("bytes", "coded_bytes", "n_survivors", "n_stale", "intra_pod_bytes"):
+            if getattr(hg, col) != getattr(hw, col):
+                fail(f"(f) {name}: {col} {getattr(hg, col)} on the card, {getattr(hw, col)} "
+                     "on the CPU")
+        gap = max(abs(a - b) / max(abs(b), 1e-30) for col in ("mse", "mse_pop")
+                  for a, b in zip(getattr(hg, col), getattr(hw, col)))
+        rho = [abs(a - b) for a, b in zip(hg.rho_hat, hw.rho_hat) if b == b]
+        mean_gap = rel_l2(got["state"]["mean"].cpu(), want["state"]["mean"])
+        gaps[name] = {"history": gap, "rho_hat": max(rho, default=0.0), "mean": mean_gap}
+        if name == "top_k_ef_temporal":
+            cs_g, cs_w = hg.client_state, hw.client_state
+            gaps[name]["bitwise"] = (torch.equal(got["state"]["mean"].cpu(), want["state"]["mean"])
+                                     and torch.equal(cs_g.ef.cpu(), cs_w.ef)
+                                     and torch.equal(cs_g.memory.cpu(), cs_w.memory))
+            if not gaps[name]["bitwise"]:
+                fail(f"(f) {name}: the final mean or client state differs from the CPU's")
+        if not max(gap, mean_gap, gaps[name]["rho_hat"]) <= 1e-4:
+            fail(f"(f) {name}: card and CPU differ by {gaps[name]} (limit 1e-4)")
+    log(f"fl (f) small dme card vs CPU [{smi}] " + json.dumps(gaps))
+    return gaps
+
+
+def phase_fl(smi: str) -> dict:
+    """The federated round driver on the card: (a)-(c) at full width on the
+    dme task, (d) temporal on drift, (e) the CLI, (f) the card against the
+    CPU. Fatal on any failed check."""
+    from repro_torch.fl import get_task
+
+    from repro_torch.core import beta as beta_lib
+
+    start = t0 = time.perf_counter()
+    task = get_task("dme", device=DEV, n_clients=N_CLIENTS, d=FL_D, rho=RHO, seed=0)
+    torch.cuda.synchronize()
+    log(f"fl: dme task of {N_CLIENTS} x {FL_D} values built in "
+        f"{time.perf_counter() - t0:.1f} s (host numpy, then one copy to the card)")
+    t0 = time.perf_counter()  # the banks of every survivor count, outside the timed rounds
+    for n in range(1, N_CLIENTS + 1):
+        beta_lib.srht_eig_bank(n, K, D_BLOCK, device=DEV)
+    torch.cuda.synchronize()
+    log(f"fl: eigenvalue banks for 1-{N_CLIENTS} clients ready in "
+        f"{time.perf_counter() - t0:.3f} s")
+    out = {"a": _fl_sync(task, smi)}
+    out["b"] = _fl_async(task, smi)
+    out["c"] = _fl_overlap_ownership(task, out["a"], smi)
+    del task
+    out["d"] = _fl_temporal(smi)
+    out["e"] = _fl_cli(smi)
+    out["f"] = _fl_card_vs_cpu(smi)
+    log(f"fl: phase done in {time.perf_counter() - start:.1f} s")
+    return out
+
+
 def _device_ms_by_kernel(prof) -> tuple:
     """(device ms by kernel name, launches by kernel name)."""
     by_name, counts = {}, {}
@@ -1684,6 +2042,7 @@ def main() -> int:
     phase_baselines(tree, main_path)
     phase_codec(tree, main_path)
     del main_path
+    phase_fl(smi)
     phase_profile(tree)
     del tree
     phase_small_reference()

@@ -18,7 +18,9 @@ self-describing, and the decode follows the PAYLOAD's budgets (``budget``
 and ``chunk_budgets``) over its own config, so one decode path serves a
 heterogeneous cohort. ``draws=`` (stacked (n, 1|C, ...), or one client's
 (1|C, ...)) and ``bank=`` pass through to the sparsifier, so the JAX
-package's draws and eigenvalue bank can be carried across.
+package's draws and eigenvalue bank can be carried across. With
+``repro_torch.obs`` enabled, ``encode_all`` and ``decode_payload`` count
+their calls, clients and declared payload bytes (Python ints, no host read).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import dataclasses
 
 import torch
 
-from ... import resolve_device
+from ... import obs, resolve_device
 from .. import random as prand
 from ..estimators import base as est_base
 from .payload import LEGACY_VALUE_NAMES, Payload, PayloadMeta, arrays_of, meta_of
@@ -268,6 +270,8 @@ class Pipeline:
         """Stacked payloads (leading n) -> (C, d_block) mean estimate.
         ``chunk_offset``: global position of the payloads' first chunk."""
         pipe = self._for_payload(payloads)
+        obs.count("codec", "decode.calls", sparsifier=pipe.sparsifier.name)
+        obs.count("codec", "decode.clients", n)
         return pipe.sparsifier.decode(key, pipe._dequantize(payloads), n, client_ids=client_ids,
                                       chunk_offset=chunk_offset, draws=draws, bank=bank)
 
@@ -336,6 +340,10 @@ class Pipeline:
         stacked ClientState of those clients; ``draws`` are stacked (n, 1|C,
         ...). The clients encode one after another."""
         n = xs.shape[0]
+        if obs.enabled():  # guard: payload_nbytes builds a PayloadMeta
+            obs.count("codec", "encode_all.calls", sparsifier=self.sparsifier.name)
+            obs.count("codec", "encode_all.clients", n)
+            obs.count("codec", "encode_all.payload_bytes", n * self.payload_nbytes(xs.shape[1]))
         ids = list(range(n)) if client_ids is None else [int(i) for i in client_ids]
         per, new_states = [], []
         for i, cid in enumerate(ids):

@@ -5,6 +5,13 @@ that leave a ragged last chunk, goes through both packages with the JAX
 draws and bank carried across: the mean tree agrees to relative L2 <= 1e-4
 leaf by leaf and every byte field of ``info`` is equal, with all clients and
 with a subset of participants.
+
+The overlapped stream and the chunk-ownership decode: ``ownership_plan``
+(divisible, ragged, more shards than chunks), ``stream_tiles`` and
+``intra_pod_traffic`` equal JAX's exactly; ``sharded_decode`` and
+``streamed_mean`` on JAX's shared draws (and bank) agree with JAX's within
+1e-5 and are bitwise equal to the port's own synchronous decode; the
+refusals keep JAX's wording.
 """
 from __future__ import annotations
 
@@ -20,12 +27,15 @@ from jax.flatten_util import ravel_pytree
 
 from repro.core import beta as jbeta
 from repro.core import codec as jcodec
+from repro.core.estimators import rand_k as jrk
 from repro.core.estimators import rand_proj_spatial as jrps
 from repro.dist import collectives as jcoll
+from repro.dist import sharding as jshard
 from repro_torch import interop
 from repro_torch.core import chunking
 from repro_torch.core import codec as tcodec
 from repro_torch.dist import collectives as tcoll
+from repro_torch.dist import sharding as tshard
 
 D_BLOCK, K, TRIALS = 64, 8, 64
 SHAPES = {"w": (10, 30), "b": (17,), "a": (5, 3)}  # 332 values: 6 chunks, the last ragged
@@ -126,6 +136,187 @@ def test_compressed_mean_tree_matches_jax(case):
 def test_unported_routes_raise():
     tree = interop.tree_from_numpy(_tree(2, 4), "cpu")
     spec = tcodec.RandProjSpatial(k=K, d_block=D_BLOCK)
-    for kw in ({"overlap": True}, {"ownership": 2}):
-        with pytest.raises(NotImplementedError):
-            tcoll.compressed_mean_tree(spec, 0, tree, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        tcoll.compressed_mean_tree(spec, 0, tree, device="cpu", shardings=object())
+
+
+# ------------------------------------------- the stream and the owner decode
+
+PLANS = {"divisible": (12, 4), "ragged": (7, 3), "more_shards": (2, 4), "one": (5, 1)}
+
+
+def _plan_facts(mod_shard, mod_coll, n_chunks, n_shards):
+    plan = mod_shard.chunk_ownership(n_chunks, n_shards)
+    return {
+        "geometry": (plan.chunks_per_owner, plan.padded_chunks, plan.pad, plan.slices),
+        "owners": [plan.owner_of(c) for c in range(n_chunks)],
+        "tiles": [mod_coll.stream_tiles(n_chunks, tile, own)
+                  for tile in (1, 2, 3, n_chunks + 5) for own in (None, plan)],
+        "via_ownership_plan": [mod_coll.ownership_plan(arg, n_chunks, n_shards)
+                               for arg in (None, False, True, 2, plan)],
+    }
+
+
+@pytest.mark.parametrize("case", list(PLANS))
+def test_ownership_plan_and_tiles_match_jax(case):
+    n_chunks, n_shards = PLANS[case]
+    got = _plan_facts(tshard, tcoll, n_chunks, n_shards)
+    want = _plan_facts(jshard, jcoll, n_chunks, n_shards)
+    assert got["geometry"] == want["geometry"] and got["owners"] == want["owners"]
+    assert got["tiles"] == want["tiles"]
+    as_pair = [None if p is None else (p.n_chunks, p.n_shards) for p in got["via_ownership_plan"]]
+    assert as_pair == [None if p is None else (p.n_chunks, p.n_shards)
+                       for p in want["via_ownership_plan"]]
+    covered = [c for lo, hi in got["geometry"][3] for c in range(lo, hi)]
+    assert covered == list(range(n_chunks))
+
+
+def _plan_errors(mod_shard, mod_coll) -> list:
+    out = []
+    for call in (lambda: mod_shard.ChunkOwnership(n_chunks=0, n_shards=2),
+                 lambda: mod_shard.ChunkOwnership(n_chunks=4, n_shards=0),
+                 lambda: mod_shard.chunk_ownership(4, 2).owner_of(4),
+                 lambda: mod_shard.chunk_ownership(4, 2).slice_for(2),
+                 lambda: mod_coll.stream_tiles(7, 0),
+                 lambda: mod_coll.ownership_plan(mod_shard.chunk_ownership(6, 2), 7, 1)):
+        with pytest.raises(ValueError) as ei:
+            call()
+        out.append(str(ei.value))
+    return out
+
+
+def test_plan_refusals_keep_jax_wording():
+    assert _plan_errors(tshard, tcoll) == _plan_errors(jshard, jcoll)
+
+
+TRAFFIC_SPECS = {
+    "rand_k": lambda m: m.RandK(k=K, d_block=D_BLOCK),
+    "rand_proj_spatial_int8": lambda m: m.Pipeline([m.RandProjSpatial(k=K, d_block=D_BLOCK),
+                                                    m.Int8Quant()]),
+    "top_k": lambda m: m.TopK(k=K, d_block=D_BLOCK),
+    "identity": lambda m: m.Identity(d_block=D_BLOCK),
+}
+
+
+@pytest.mark.parametrize("name", list(TRAFFIC_SPECS))
+def test_intra_pod_traffic_matches_jax_exactly(name):
+    tp, jp = (m.as_pipeline(TRAFFIC_SPECS[name](m)) for m in (tcodec, jcodec))
+    for n, n_chunks, n_shards in ((8, 12, 1), (8, 12, 4), (6, 7, 3), (5, 2, 4), (4, 126, 4)):
+        plan_t = tshard.chunk_ownership(n_chunks, n_shards)
+        plan_j = jshard.chunk_ownership(n_chunks, n_shards)
+        for pt, pj in ((None, None), (plan_t, plan_j)):
+            got = tcoll.intra_pod_traffic(tp, n, n_chunks, n_shards, plan=pt)
+            want = jcoll.intra_pod_traffic(jp, n, n_chunks, n_shards, plan=pj)
+            assert got == want and all(type(v) is int for v in got.values())
+            assert tcoll.intra_pod_reduction(got) == jcoll.intra_pod_reduction(want)
+
+
+STREAM_N, STREAM_C, STREAM_PLAN, STREAM_TILE = 4, 7, (7, 3), 2
+STREAM_SPECS = {
+    "rand_proj_spatial": lambda m, **kw: m.RandProjSpatial(k=K, d_block=D_BLOCK, transform="avg",
+                                                           beta_trials=TRIALS, **kw),
+    "rand_k": lambda m, **kw: m.RandK(k=K, d_block=D_BLOCK),
+}
+
+
+@functools.cache
+def _jax_stream_side() -> dict:
+    """JAX's sharded and streamed decodes of one (n, C, d) input, and its
+    shared draws, from ONE compiled program."""
+    rng = np.random.default_rng(8)
+    common = rng.standard_normal((STREAM_C, D_BLOCK))
+    xs = (common[None] + 0.5 * rng.standard_normal((STREAM_N,) + common.shape)).astype(
+        np.float32)
+    plan = jshard.chunk_ownership(*STREAM_PLAN)
+
+    def everything(x):
+        key = jax.random.key(KEY_SEED)
+        out = {}
+        for name, make in STREAM_SPECS.items():
+            spec = make(jcodec, use_pallas="never") if name == "rand_proj_spatial" else \
+                make(jcodec)
+            pipe = jcodec.as_pipeline(spec)
+            payloads, _ = pipe.encode_all(key, x)
+            if name == "rand_k":
+                draws = {"rows": jnp.stack([jrk._indices(spec, key, i, STREAM_C)[:1]
+                                            for i in range(STREAM_N)])}
+            else:
+                draws = jrps._fused_draws(spec, key, STREAM_N, STREAM_C, None, 0)
+            out[name] = {
+                "draws": draws,
+                "sync": pipe.decode_payload(key, payloads, STREAM_N),
+                "sharded": jcoll.sharded_decode(pipe, key, payloads, STREAM_N, plan),
+                "streamed": jcoll.streamed_mean(pipe, key, x, STREAM_N, tile=STREAM_TILE,
+                                                ownership=plan)[0],
+                "streamed_side": jcoll.streamed_mean(pipe, key, x, STREAM_N, tile=3,
+                                                     side_info=x[0])[0],
+            }
+        return out
+
+    with _cheap_compiles():
+        out = jax.tree.map(np.asarray, jax.jit(everything)(jnp.asarray(xs)))
+        out["bank"] = jbeta.srht_eig_bank(STREAM_N, K, D_BLOCK, TRIALS)
+    out["xs"] = xs
+    return out
+
+
+@pytest.mark.parametrize("name", list(STREAM_SPECS))
+def test_sharded_and_streamed_decodes_match_jax(name):
+    j = _jax_stream_side()
+    pipe = tcodec.as_pipeline(STREAM_SPECS[name](tcodec))
+    draws = interop.draws_from_numpy(j[name]["draws"], "cpu")
+    bank = interop.bank_from_numpy(j["bank"]) if name == "rand_proj_spatial" else None
+    xs = torch.from_numpy(j["xs"])
+    plan = tshard.chunk_ownership(*STREAM_PLAN)
+    payloads, _ = pipe.encode_all(0, xs, draws=draws)
+    sync = pipe.decode_payload(0, payloads, STREAM_N, draws=draws, bank=bank)
+    got = {
+        "sharded": tcoll.sharded_decode(pipe, 0, payloads, STREAM_N, plan, draws=draws,
+                                        bank=bank),
+        "streamed": tcoll.streamed_mean(pipe, 0, xs, STREAM_N, tile=STREAM_TILE, ownership=plan,
+                                        draws=draws, bank=bank)[0],
+    }
+    side, _ = tcoll.streamed_mean(pipe, 0, xs, STREAM_N, tile=3, side_info=xs[0], draws=draws,
+                                  bank=bank)
+    for what, out in got.items():
+        assert torch.equal(out, sync), what  # the port's own contract: bitwise
+        want = j[name][what]
+        assert np.linalg.norm(out.numpy() - want) <= 1e-5 * np.linalg.norm(want), what
+    want = j[name]["streamed_side"]
+    assert np.linalg.norm(side.numpy() - want) <= 1e-5 * np.linalg.norm(want)
+
+
+REFUSED_PIPES = {
+    "int8": lambda m: m.Pipeline([m.RandK(k=K, d_block=D_BLOCK), m.Int8Quant()]),
+    "per_chunk_rand_k": lambda m: m.RandK(k=K, d_block=D_BLOCK, shared_randomness=False),
+    "wangni": lambda m: m.Wangni(k=K, d_block=D_BLOCK),
+    "rand_k_spatial_est": lambda m: m.RandKSpatial(k=K, d_block=D_BLOCK, r_mode="est"),
+    "chunk_budgets": lambda m: m.RandK(k=K, d_block=D_BLOCK, chunk_budgets=(4, 8, 12)),
+}
+
+
+def _refusal_texts(codec_mod, coll_mod, name) -> list:
+    pipe = codec_mod.as_pipeline(REFUSED_PIPES[name](codec_mod))
+    out = []
+    for check in (coll_mod.check_streamable, coll_mod.check_shardable):
+        try:
+            check(pipe)
+            out.append(None)
+        except ValueError as e:
+            out.append(str(e))
+    return out
+
+
+@pytest.mark.parametrize("name", list(REFUSED_PIPES))
+def test_stream_and_ownership_refusals_keep_jax_wording(name):
+    got = _refusal_texts(tcodec, tcoll, name)
+    assert got == _refusal_texts(jcodec, jcoll, name)
+    assert any(got)
+    tree = interop.tree_from_numpy(_tree(2, 4), "cpu")
+    spec = REFUSED_PIPES[name](tcodec)
+    if name != "chunk_budgets":  # its payload layout needs the tree's own C
+        for kw, text in (({"overlap": True}, got[0]), ({"ownership": 2}, got[1])):
+            if text is not None:
+                with pytest.raises(ValueError) as ei:
+                    tcoll.compressed_mean_tree(spec, 0, tree, device="cpu", **kw)
+                assert str(ei.value) == text

@@ -127,6 +127,34 @@ def test_lemma_4_1_property_over_seeds(seed):
                                        err_msg=f"shared={shared} method={method}")
 
 
+def test_lemma_4_1_under_error_feedback():
+    """tests/test_estimators.py:160: Lemma 4.1 extends through error
+    feedback. The subsample projection's (d/k) G^T z self-decode IS Rand-k's
+    (d/k) scatter, so the means AND the residuals coincide over 3 rounds of
+    ``compressed_mean_tree(ef_chunks=)`` (direct decode, as the JAX test)."""
+    from repro_torch.core import random as prand
+    from repro_torch.dist import collectives
+
+    n, d, k = 4, 64, 4
+    rng = np.random.default_rng(9)
+    tree = {"w": torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))}
+    s_proj = codec.build("rand_proj_spatial", k=k, d_block=d, transform="avg",
+                         projection="subsample", decode_method="direct", ef=True)
+    s_spatial = codec.build("rand_k_spatial", k=k, d_block=d, transform="avg", ef=True)
+    ef_a = ef_b = torch.zeros(n, 1, d)
+    for t in range(3):
+        key = prand.fold_in(prand.key(11, "cpu"), t)
+        mean_a, _, ef_a = collectives.compressed_mean_tree(s_proj, key, tree, ef_chunks=ef_a,
+                                                           device="cpu")
+        mean_b, _, ef_b = collectives.compressed_mean_tree(s_spatial, key, tree,
+                                                           ef_chunks=ef_b, device="cpu")
+        np.testing.assert_allclose(mean_a["w"].numpy(), mean_b["w"].numpy(), rtol=2e-3,
+                                   atol=2e-4, err_msg=f"round {t} mean")
+        np.testing.assert_allclose(ef_a.numpy(), ef_b.numpy(), rtol=2e-3, atol=2e-4,
+                                   err_msg=f"round {t} residual")
+        assert float(ef_a.abs().sum()) > 0  # the residual carries mass
+
+
 def test_varying_correlation_ordering():
     """tests/test_estimators.py:219 (Fig. 3): given R, Rand-Proj-Spatial(Opt)
     < Rand-k-Spatial(Opt) < Rand-k. The same key gives Rand-k and

@@ -5,8 +5,11 @@
 - on a CPU tensor the ops run the plain versions, ``use_kernel="force"``
   raises, and the CUDA build is never reached, by the estimator or by a
   model's prefill;
-- what is not ported yet (the ownership decode, the overlapped stream,
-  GSPMD shardings, Mamba layers, the MoE FFN) raises.
+- the FL layer's entry points (``get_task``, ``run_rounds``, the CLI) run
+  on the card unless asked for the CPU;
+- what is not ported yet (GSPMD shardings, the gspmd / shard_map round
+  backends, hierarchical rounds, the profiler session, Mamba layers, the
+  MoE FFN) raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -24,6 +27,9 @@ from repro_torch.core import codec
 from repro_torch.core.estimators import base as est_base
 from repro_torch.dist import collectives
 from repro_torch import configs, interop
+from repro_torch.fl import rounds as fl_rounds
+from repro_torch.fl import run as fl_run
+from repro_torch.fl import tasks as fl_tasks
 from repro_torch.core import beta
 from repro_torch.kernels import _build, ops
 from repro_torch.launch import serve
@@ -156,12 +162,40 @@ def test_unported_options_raise():
         codec.Pipeline([codec.RandK(k=4, d_block=32), types.SimpleNamespace(role="compress")])
     tree = {"w": torch.zeros(2, 64)}
     spec = codec.RandK(k=8, d_block=64)
-    for kw, what in (({"ownership": 2}, "ownership"), ({"overlap": True}, "overlap"),
-                     ({"shardings": object()}, "shardings")):
-        with pytest.raises(NotImplementedError, match=what):
-            collectives.compressed_mean_tree(spec, 0, tree, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match=r"shardings.*ROADMAP A\.9"):
+        collectives.compressed_mean_tree(spec, 0, tree, device="cpu", shardings=object())
+    task = fl_tasks.get_task("dme", device="cpu", n_clients=2, d=64)
+    for cfg, item in ((fl_rounds.RoundConfig(backend="gspmd"), r"gspmd.*ROADMAP A\.9"),
+                      (fl_rounds.RoundConfig(backend="shard_map"), r"shard_map.*ROADMAP A\.9"),
+                      (fl_rounds.RoundConfig(hierarchy="hier", pods=2), r"hier.*ROADMAP A\.10")):
+        with pytest.raises(NotImplementedError, match=item):
+            fl_rounds.run_rounds(task, spec, cfg=cfg, device="cpu")
+    for argv, item in ((["--profile-dir", "prof"], r"profile-dir.*ROADMAP A\.8"),
+                       (["--backend", "gspmd"], r"gspmd.*ROADMAP A\.9"),
+                       (["--pods", "2"], r"pods.*ROADMAP A\.10"),
+                       (["--hosts", "2"], r"hosts.*ROADMAP A\.10")):
+        with pytest.raises(NotImplementedError, match=item):
+            fl_run.main(["--device", "cpu", "--smoke", "--task", "dme", *argv])
     with pytest.raises(ValueError):
         ops.fwht(torch.randn(2, 8), use_kernel="sometimes")
+
+
+_FL_ENTRY_POINTS = {
+    "get_task": lambda: fl_tasks.get_task("dme", n_clients=2, d=32),
+    "run_rounds": lambda: fl_rounds.run_rounds(
+        fl_tasks.get_task("dme", device="cpu", n_clients=2, d=32), codec.RandK(k=4, d_block=32),
+        cfg=fl_rounds.RoundConfig(n_rounds=1)),
+    "cli": lambda: fl_run.main(["--smoke", "--task", "dme"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_FL_ENTRY_POINTS))
+def test_fl_entry_points_need_cuda_without_device(monkeypatch, name):
+    """The FL layer runs on the card unless asked for the CPU: without CUDA
+    its entry points raise, never fall back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _FL_ENTRY_POINTS[name]()
 
 
 def test_draws_from_numpy_takes_sparse_draws():
