@@ -66,6 +66,29 @@ result):
    ``--compare`` on power_iteration, 20 rounds; (f) a small dme run on the
    card and the CPU (ledgers equal, floats within 1e-4, top_k's state
    bitwise);
+   then the training path (``phase_train``, lines ``train (a)``-``train
+   (c)``): (a) musicgen-medium at full width, 24 of its 48 layers
+   (685,843,968 float32 parameters, bf16 compute, remat by block, the dense
+   attention), 4 clients x batch 4 x 128 tokens through
+   ``train.make_train_step`` with ``codec.build("rand_proj_spatial", k=64,
+   d_block=1024, transform="avg")`` and ``AdamW(lr=3e-3, warmup_steps=20)``:
+   K5's kernel route must refuse tensors that require grad, launching
+   nothing; the first step must move every parameter leaf; a warm step and
+   5 timed ones (CUDA events: wall, the clients' forward and backward,
+   ``compressed_mean_tree``, the optimizer; loss, grad_norm,
+   compression_ratio, peak memory), counts zeroed just before the timed
+   steps and read after each: K1 x 4, K3 x 1 and 1-64 CG steps a step,
+   nothing else; one profiled step; then one more step from the same state
+   with the kernels and through the plain versions (streamed in tiles of
+   65,536 chunks, bit-identical to the whole exchange, so that their
+   temporaries fit): the updates within relative L2 1e-3; (b) the training
+   CLI (tiny preset, 4 clients, 60 steps, a failure injected at step 20, a
+   resize to 3 clients at 40, checkpoints every 10): the loss falls, the
+   failure is recovered from a checkpoint, the resize happens, and the same
+   command with 70 steps resumes at step 60; the final checkpoint's bytes
+   and seconds; (c) 3 DME steps of tiny musicgen-medium and tiny gemma3-4b
+   from the same state on the card and the CPU: losses and parameters
+   within 1e-4;
 5. profile one more shared-randomness round (torch.profiler): device time
    by kernel against the round's wall time; every K1, K3 and CG step launch
    in it must be the register-resident butterfly kernel, by name;
@@ -1407,6 +1430,384 @@ def phase_fl(smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------ phase_train (training)
+
+# (a): musicgen-medium (src/repro/configs/musicgen_medium.py) at full width,
+# 24 of its 48 layers: 4 clients at 48 layers would hold about 89 GB
+TRAIN_ARCH, TRAIN_PRESET, TRAIN_BLOCKS = "musicgen-medium", "full", 24
+TRAIN_PARAMS = 685_843_968
+TRAIN_BATCH, TRAIN_SEQ = 4, 128       # the training CLI's defaults, per client
+TRAIN_TIMED_STEPS = 5
+TRAIN_PLAIN_TILE = 65536   # chunks a tile of the plain reference's stream
+TRAIN_CG_STEPS = (1, 64)   # the decode's CG launches a step: at least one, at most cg_iters
+# (b): the CLI at its default preset: at "small" (31,465,984 parameters) the
+# loss rises over 60 steps of 16x compressed gradients in both packages
+TRAIN_CLI_PRESET, TRAIN_CLI_STEPS, TRAIN_CLI_RESUME_STEPS = "tiny", 60, 70
+TRAIN_CLI_FAIL, TRAIN_CLI_RESIZE = 20, (40, 3)
+# (c): tiny configs on the card and the CPU
+TRAIN_SMALL_ARCHS, TRAIN_SMALL_STEPS = ("musicgen-medium", "gemma3-4b"), 3
+
+
+def _train_spec(use_kernel: str = "auto"):
+    from repro_torch.core import codec
+
+    return codec.build("rand_proj_spatial", k=K, d_block=D_BLOCK, transform="avg",
+                       use_kernel=use_kernel)
+
+
+def _train_opt():
+    from repro_torch.optim import AdamW
+
+    return AdamW(lr=3e-3, warmup_steps=20)  # the training CLI's
+
+
+class _ClockedOptimizer:
+    """An optimizer whose ``update`` appends ("optimizer", event before,
+    event after) to ``marks``."""
+
+    def __init__(self, inner, marks: list):
+        self.inner, self.marks = inner, marks
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, *args):
+        before = _event()
+        out = self.inner.update(*args)
+        self.marks.append(("optimizer", before, _event()))
+        return out
+
+
+def _clock_collective(marks: list):
+    """Patch ``dist.collectives.compressed_mean_tree`` (which the train step
+    calls through the module) to append ("compressed_mean_tree", event
+    before, event after) to ``marks``; -> the restore function."""
+    from repro_torch.dist import collectives
+
+    saved = collectives.compressed_mean_tree
+
+    def call(*args, **kw):
+        before = _event()
+        out = saved(*args, **kw)
+        marks.append(("compressed_mean_tree", before, _event()))
+        return out
+
+    collectives.compressed_mean_tree = call
+    return lambda: setattr(collectives, "compressed_mean_tree", saved)
+
+
+def _tree_sq(tree) -> float:
+    return sum(float((leaf.double() ** 2).sum()) for leaf in _leaves(tree))
+
+
+def _update_gap(old, new_a, new_b) -> float:
+    """Relative L2 gap between two updates of ``old``: |b - a| / |b - old|."""
+    num = sum(float(((a.double() - b.double()) ** 2).sum())
+              for a, b in zip(_leaves(new_a), _leaves(new_b)))
+    den = sum(float(((b.double() - o.double()) ** 2).sum())
+              for o, b in zip(_leaves(old), _leaves(new_b)))
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _flash_refusal() -> None:
+    """K5's kernel route on tensors that require grad must raise, and
+    launch nothing; no K5 backward exists in either package."""
+    from repro_torch.kernels import ops
+
+    before = ops.launch_counts()
+    g = torch.Generator(device=DEV).manual_seed(3)
+    for dtype in FLASH_ROUTES:
+        q, k, v = (torch.randn((2, TRAIN_SEQ, 64), generator=g, device=DEV).to(dtype)
+                   for _ in range(3))
+        for t in (q, k, v):
+            t.requires_grad_()
+        try:
+            ops.flash_attention(q, k, v, rep=1)
+        except NotImplementedError as e:
+            if "ROADMAP A.11" not in str(e):
+                fail(f"(a) K5's refusal does not name ROADMAP A.11: {e}")
+        else:
+            fail(f"(a) K5's kernel route ran on {dtype} tensors that require grad")
+    if ops.launch_counts() != before:
+        fail("(a) K5's refused calls launched a kernel")
+
+
+def _aten_ops(fn) -> int:
+    """The aten ops that one call of ``fn`` dispatches (each a host round
+    trip through PyTorch's dispatcher)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def _train_full_width(smi: str) -> dict:
+    """(a) musicgen-medium at full width (24 of 48 layers), 4 clients: a warm
+    step and 5 timed ones through ``make_train_step``, each split into the
+    clients' forward and backward, compressed_mean_tree and the optimizer;
+    launches a step; then one more step from the same state with the
+    kernels and through the plain versions."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.train import init_train_state, make_train_step
+
+    _flash_refusal()
+    cfg = configs.preset_config(TRAIN_ARCH, TRAIN_PRESET).replace(n_blocks=TRAIN_BLOCKS)
+    if cfg.n_params() != TRAIN_PARAMS:
+        fail(f"(a) {cfg.name} at {TRAIN_BLOCKS} blocks has {cfg.n_params()} parameters, not "
+             f"{TRAIN_PARAMS}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
+    opt, marks = _train_opt(), []
+    state = init_train_state(cfg, opt, params, _train_spec(), N_CLIENTS)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                       n_clients=N_CLIENTS, seed=0)
+    step_fn = make_train_step(cfg, _ClockedOptimizer(opt, marks), dme_spec=_train_spec(),
+                              device=DEV)
+    torch.cuda.synchronize()
+    log(f"train (a): {cfg.name}, {cfg.n_blocks} of 48 blocks, {cfg.n_params()} float32 "
+        f"parameters, {cfg.dtype} compute, remat {cfg.remat}, {N_CLIENTS} clients x batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens; state built in {time.perf_counter() - t0:.1f} s")
+    rows = []
+    restore = _clock_collective(marks)
+    try:
+        for step in range(1 + TRAIN_TIMED_STEPS):
+            batch = data.batch_at(step, DEV)
+            if step == 1:  # the timed steps' window opens here
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launch_counts()
+            marks.clear()
+            counts = ops.launch_counts()
+            start = _event()
+            new_params, new_state, metrics = step_fn(params, state, batch, step)
+            end = _event()
+            torch.cuda.synchronize()
+            if step == 0:
+                unchanged = [i for i, (a, b) in enumerate(zip(_leaves(params),
+                                                              _leaves(new_params)))
+                             if torch.equal(a, b)]
+                if unchanged:
+                    fail(f"(a) the first step left parameter leaves {unchanged} unchanged: a "
+                         "gradient skipped them")
+            params, state = new_params, new_state
+            spans = {name: before.elapsed_time(after) for name, before, after in marks}
+            row = {"step": step, "wall_ms": start.elapsed_time(end),
+                   "fwd_bwd_ms": start.elapsed_time(
+                       {name: before for name, before, _ in marks}["compressed_mean_tree"]),
+                   "compressed_mean_tree_ms": spans["compressed_mean_tree"],
+                   "optimizer_ms": spans["optimizer"],
+                   **{k: float(v) for k, v in metrics.items()},
+                   "launches": {k: v - counts.get(k, 0) for k, v in ops.launch_counts().items()
+                                if v != counts.get(k, 0)}}
+            if step > 0:
+                row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            rows.append(row)
+            log(f"train (a) step [{smi}] " + json.dumps(row))
+    finally:
+        restore()
+    window = ops.launch_counts()  # ... and closes here
+    for r in rows:
+        if not np.isfinite(r["loss"]):
+            fail(f"(a) step {r['step']}: loss {r['loss']}")
+        if r["step"] == 0:
+            continue
+        launched = dict(r["launches"])
+        steps = launched.pop("srht_cg_step", 0)
+        lo, hi = TRAIN_CG_STEPS
+        if launched != {"fwht": N_CLIENTS, "srht_decode_sum": 1} or not lo <= steps <= hi:
+            fail(f"(a) step {r['step']} launched {r['launches']}: not K1 x {N_CLIENTS}, K3 x 1 "
+                 f"and {lo}-{hi} CG steps, and no K4 alone nor K5")
+    # one more step from the same state: with the kernels, and through the
+    # plain versions, streamed in tiles (bit-identical to the whole
+    # exchange) so that their (n, C, d) temporaries fit beside the state
+    step = 1 + TRAIN_TIMED_STEPS
+    batch = data.batch_at(step, DEV)
+    # where one step's time goes: device time by kernel against its wall time
+    by_name, wall_ms, _ = _profiled(lambda: step_fn(params, state, batch, step))
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    profile = {"wall_ms": wall_ms, "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
+               "top_device_ms": [[name[:160], ms] for name, ms in top]}
+    log(f"train (a) profiled step [{smi}] " + json.dumps(profile))
+    profile["aten_ops"] = _aten_ops(lambda: step_fn(params, state, batch, step))
+    log(f"train (a): one step dispatches {profile['aten_ops']} aten ops from the host")
+    kernel = make_train_step(cfg, opt, dme_spec=_train_spec(), device=DEV)(
+        params, state, batch, step)
+    kernel_params, k_metrics = kernel[0], kernel[2]
+    del kernel  # its optimizer state: 8 bytes a parameter
+    plain = make_train_step(cfg, opt, dme_spec=_train_spec("never"), dme_overlap=True,
+                            dme_overlap_tile=TRAIN_PLAIN_TILE, device=DEV)(
+        params, state, batch, step)
+    plain_params, p_metrics = plain[0], plain[2]
+    del plain
+    torch.cuda.synchronize()
+    gap = _update_gap(params, kernel_params, plain_params)
+    timed = rows[1:]
+    out = {"params": cfg.n_params(), "rows": rows, "launches": dict(window),
+           "profile": profile, "update_gap_vs_plain_on_card": gap,
+           "loss_kernel_vs_plain": [float(k_metrics["loss"]), float(p_metrics["loss"])],
+           "peak_gb": max(r["peak_gb"] for r in timed),
+           "median_ms": {key: statistics.median(r[key] for r in timed) for key in
+                         ("wall_ms", "fwd_bwd_ms", "compressed_mean_tree_ms", "optimizer_ms")}}
+    log(f"train (a) [{smi}] " + json.dumps({k: v for k, v in out.items()
+                                           if k not in ("rows", "profile")}))
+    if not gap <= 1e-3:
+        fail(f"(a) one step's update with the kernels and through the plain versions differ "
+             f"by {gap} (limit 1e-3)")
+    return out
+
+
+class _Tee:
+    """A text stream writing to several."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, s):
+        for st in self.streams:
+            st.write(s)
+        return len(s)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def _train_cli_run(argv: list) -> tuple:
+    """(history, printed text) of ``launch.train.main(argv)``, its final
+    checkpoint's save timed."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    saved, saves = ckpt_lib.save, []
+
+    def timed_save(ckpt_dir, step, tree, **kw):
+        t0 = time.perf_counter()
+        path = saved(ckpt_dir, step, tree, **kw)
+        saves.append({"step": step, "s": time.perf_counter() - t0,
+                      "bytes": sum(os.path.getsize(os.path.join(path, f))
+                                   for f in os.listdir(path))})
+        return path
+
+    buf = io.StringIO()
+    ckpt_lib.save = timed_save
+    try:
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+            hist = train_cli.main(argv)
+    finally:
+        ckpt_lib.save = saved
+    return hist, buf.getvalue(), saves[-1]
+
+
+def _train_cli(smi: str) -> dict:
+    """(b) the CLI (launch.train.main) on the card: musicgen-medium at the
+    CLI's default preset, 4 clients, a failure injected and recovered from a
+    checkpoint, an elastic resize to 3 clients; then the same command with
+    more steps resumes from the last checkpoint."""
+    import tempfile
+
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    fail_at, (resize_at, resize_to) = TRAIN_CLI_FAIL, TRAIN_CLI_RESIZE
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        argv = ["--arch", TRAIN_ARCH, "--preset", TRAIN_CLI_PRESET, "--clients", str(N_CLIENTS),
+                "--ckpt-every", "10", "--ckpt-dir", tmp]
+        t0 = time.perf_counter()
+        hist, text, final = _train_cli_run(argv + [
+            "--steps", str(TRAIN_CLI_STEPS), "--inject-failures", str(fail_at),
+            "--resize", f"{resize_at}:{resize_to}"])
+        seconds = time.perf_counter() - t0
+        ck = os.path.join(tmp, f"{TRAIN_ARCH}_{TRAIN_CLI_PRESET}")
+        if not hist or not hist[-1][1] < hist[0][1]:
+            fail(f"(b) the loss did not fall: {hist}")
+        if f"step {fail_at} failed (injected node failure at step {fail_at}); restoring" \
+                not in text:
+            fail(f"(b) no recovery from the failure injected at step {fail_at}")
+        if f"elastic resize {N_CLIENTS} -> {resize_to} at step {resize_at}" not in text:
+            fail(f"(b) no resize to {resize_to} clients at step {resize_at}")
+        if ckpt_lib.latest_step(ck) != TRAIN_CLI_STEPS - 1:
+            fail(f"(b) the last checkpoint is step {ckpt_lib.latest_step(ck)}")
+        t0 = time.perf_counter()
+        hist2, text2, final2 = _train_cli_run(argv + ["--steps", str(TRAIN_CLI_RESUME_STEPS)])
+        seconds2 = time.perf_counter() - t0
+        if f"resumed from step {TRAIN_CLI_STEPS - 1}" not in text2 or \
+                [s for s, _ in hist2][:1] != [TRAIN_CLI_STEPS]:
+            fail(f"(b) the second run did not resume at step {TRAIN_CLI_STEPS}: {hist2}")
+    out = {"history": hist, "resumed_history": hist2, "seconds": seconds,
+           "resumed_seconds": seconds2, "final_checkpoint": final,
+           "resumed_final_checkpoint": final2}
+    log(f"train (b) CLI [{smi}] " + json.dumps(out))
+    return out
+
+
+def _train_small(arch: str, dev) -> tuple:
+    """(losses, params before, params after) of TRAIN_SMALL_STEPS DME steps
+    of tiny ``arch`` on ``dev``, from CPU-drawn parameters and batches."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = configs.preset_config(arch, "tiny")
+    params = _move(init_params(cfg, torch.Generator().manual_seed(1)), dev)
+    opt = _train_opt()
+    state = init_train_state(cfg, opt, params, _train_spec(), N_CLIENTS)
+    step_fn = make_train_step(cfg, opt, dme_spec=_train_spec(), device=dev)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=32, batch=2, n_clients=N_CLIENTS)
+    start, losses = params, []
+    for step in range(TRAIN_SMALL_STEPS):
+        params, state, metrics = step_fn(params, state, data.batch_at(step, "cpu"), step)
+        losses.append(float(metrics["loss"]))
+    return losses, _move(start, "cpu"), _move(params, "cpu")
+
+
+def _train_card_vs_cpu(smi: str) -> dict:
+    """(c) 3 DME steps of tiny musicgen-medium and tiny gemma3-4b from the
+    same state on the card (the kernels) and the CPU (the plain versions)."""
+    out = {}
+    for arch in TRAIN_SMALL_ARCHS:
+        l_card, p0, p_card = _train_small(arch, DEV)
+        l_cpu, _, p_cpu = _train_small(arch, "cpu")
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+        param_gap = (sum(float(((a.double() - b.double()) ** 2).sum()) for a, b in
+                         zip(_leaves(p_card), _leaves(p_cpu))) / _tree_sq(p_cpu)) ** 0.5
+        out[arch] = {"loss_gap": loss_gap, "param_gap": param_gap,
+                     "update_gap": _update_gap(p0, p_card, p_cpu), "losses": l_card}
+        if not max(loss_gap, param_gap) <= 1e-4 or not np.isfinite(l_card).all():
+            fail(f"(c) {arch}: card and CPU differ by {out[arch]} (limit 1e-4)")
+    log(f"train (c) tiny card vs CPU [{smi}] " + json.dumps(out))
+    return out
+
+
+def phase_train(smi: str) -> dict:
+    """The training path on the card: (a) musicgen-medium at full width
+    (24 of 48 layers), (b) the CLI with a failure, a resize and a resume,
+    (c) tiny configs on the card against the CPU. Fatal on any failed
+    check."""
+    start = time.perf_counter()
+    out = {"a": _train_full_width(smi)}
+    torch.cuda.empty_cache()
+    out["b"] = _train_cli(smi)
+    out["c"] = _train_card_vs_cpu(smi)
+    torch.cuda.empty_cache()
+    log(f"train: phase done in {time.perf_counter() - start:.1f} s")
+    return out
+
+
 def _device_ms_by_kernel(prof) -> tuple:
     """(device ms by kernel name, launches by kernel name)."""
     by_name, counts = {}, {}
@@ -2043,6 +2444,7 @@ def main() -> int:
     phase_codec(tree, main_path)
     del main_path
     phase_fl(smi)
+    phase_train(smi)
     phase_profile(tree)
     del tree
     phase_small_reference()

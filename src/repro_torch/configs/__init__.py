@@ -78,8 +78,9 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
 def preset_config(arch: str, preset: str) -> ModelConfig:
     """``arch``'s config at a preset scale: "full" is the published config,
     "tiny" ``reduce_for_smoke``, "small" a ~100M-class model of the same
-    family. Its JAX home is repro/launch/train.py::preset_config; it lives
-    here because the port has no trainer yet."""
+    family. Its JAX home is repro/launch/train.py::preset_config; the
+    port's training CLI (launch/train.py) and serving CLI both take it
+    from here."""
     cfg = get_config(arch)
     if preset == "full":
         return cfg

@@ -15,7 +15,10 @@ and bank across, as numpy arrays:
 - ``params_from_numpy`` takes a model's ``init_params`` tree and
   ``cache_from_numpy`` its KV cache, each checked leaf by leaf against the
   port's own layout (the stacked ``blocks``, the ``prologue`` / ``epilogue``
-  tuples), so the two packages' models compare leaf by leaf.
+  tuples), so the two packages' models compare leaf by leaf;
+- ``train_state_from_numpy`` takes a train state (``init_train_state`` or
+  a train step's): the optimizer's moments checked as parameters are, its
+  step, and the error-feedback residuals ``ef`` when present.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .core import chunking
 from .models import transformer
 
 
@@ -107,3 +111,35 @@ def cache_from_numpy(cfg, tree, batch: int, seq_len: int, device=None) -> dict:
     numpy leaves, as the port's cache (k, v in the compute dtype, pos int32)."""
     like = transformer.init_cache(cfg, batch, seq_len, device="meta")
     return _checked(tree, like, lambda t: t.dtype, resolve_device(device))
+
+
+def train_state_from_numpy(cfg, state, device=None) -> dict:
+    """The JAX package's train state for ``cfg``, with numpy leaves:
+    {"opt": {"step", and "mu", "nu" (AdamW) or "m" (SGDM with momentum)},
+    "ef" (n, C, d_block) when the pipeline has error feedback}. -> the
+    port's: moments float32 in ``param_defs``' layout, step an int32
+    0-dim tensor, ef float32 with C the parameter count's chunks of d_block."""
+    dev = resolve_device(device)
+    if not isinstance(state, dict) or "opt" not in state or not set(state) <= {"opt", "ef"}:
+        got = sorted(state) if isinstance(state, dict) else type(state).__name__
+        raise ValueError(f"a train state is {{'opt'[, 'ef']}}, got {got}")
+    if "step" not in state["opt"]:
+        raise ValueError(f"opt: no 'step' among {sorted(state['opt'])}")
+    defs = transformer.param_defs(cfg)
+    opt = {}
+    for name, leaf in state["opt"].items():
+        if name != "step":
+            opt[name] = _checked(leaf, defs, lambda _: torch.float32, dev, f"opt/{name}")
+            continue
+        step = np.asarray(leaf)
+        if step.shape != () or step.dtype.kind not in "iu":
+            raise ValueError(f"opt/step: an integer scalar, got {step.dtype} {step.shape}")
+        opt[name] = torch.tensor(int(step), dtype=torch.int32, device=dev)
+    out = {"opt": opt}
+    if "ef" in state:
+        ef = np.asarray(state["ef"])
+        if ef.ndim != 3 or ef.shape[1] != chunking.num_chunks(cfg.n_params(), ef.shape[2]):
+            raise ValueError(f"ef: (n, C, d_block) with C = ceil({cfg.n_params()} / d_block), "
+                             f"got {ef.shape}")
+        out["ef"] = torch.from_numpy(ef.astype(np.float32)).to(dev)
+    return out

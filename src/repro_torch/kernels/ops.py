@@ -200,8 +200,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, rep: i
     float32 the split-TF32 kernel (each float32 operand as two TF32 values,
     three products a pair), and there is no fallback between them or
     to the plain version; any other dtype raises. The kernels pick their own
-    tiles, so the Pallas wrapper's q_tile / kv_tile are not taken."""
+    tiles, so the Pallas wrapper's q_tile / kv_tile are not taken.
+
+    Neither kernel has a backward, nor has the JAX package's Pallas kernel:
+    the kernel route raises NotImplementedError on tensors that require
+    grad, rather than return a result that autograd cannot reach q, k and v
+    through. The plain version stays differentiable."""
     if _use_kernel(q, use_kernel):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "the flash-attention kernels have no backward (ROADMAP A.11): train with "
+                "attn_impl='blocked', or take the plain version (use_kernel='never')")
         return _flash.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                                            rep=rep, window=window, q_offset=q_offset)
     return _ref.flash_attention_ref(q, k, v, rep=rep, window=window, q_offset=q_offset)

@@ -4,6 +4,7 @@ from .transformer import (  # noqa: F401
     forward,
     init_cache,
     init_params,
+    loss_fn,
     param_defs,
     prefill,
 )

@@ -46,4 +46,7 @@ def mlp(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
 
 def embed_tokens(tokens: torch.Tensor, table: torch.Tensor,
                  compute_dtype: torch.dtype) -> torch.Tensor:
-    return table[tokens.long()].to(compute_dtype)
+    """The table's rows at ``tokens``. ``F.embedding`` gathers what
+    ``table[tokens]`` does; its backward on the CPU sums each row's
+    contributions in a fixed order, where an index's backward does not."""
+    return F.embedding(tokens.long(), table).to(compute_dtype)

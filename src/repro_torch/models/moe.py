@@ -10,9 +10,13 @@ import torch
 from . import layers
 
 
-def moe_ffn(x, p, cfg):
-    raise NotImplementedError(
+def not_ported(cfg) -> NotImplementedError:
+    return NotImplementedError(
         f"{cfg.name}: the MoE FFN is not ported to repro_torch yet (ROADMAP A.11, MoE)")
+
+
+def moe_ffn(x, p, cfg):
+    raise not_ported(cfg)
 
 
 def ffn_layer(x, p, cfg, spec):

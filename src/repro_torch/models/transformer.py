@@ -8,11 +8,14 @@ in the ``prologue`` / ``epilogue`` tuples, so the two packages' trees compare
 leaf by leaf (``interop.params_from_numpy`` carries one across).
 
 ``backbone`` runs the stacked blocks in a Python loop; it computes what the
-JAX scan computes. ``remat`` and ``force_unroll`` are training and
-cost-calibration knobs of the JAX package and change nothing here; its
-activation-sharding constraint is the identity on one device and is left
-out. Mamba layers and the MoE FFN are not ported yet and raise
-NotImplementedError. Caches are updated in place (models/attention.py).
+JAX scan computes. Under autograd, ``remat="block"`` runs each block
+through ``torch.utils.checkpoint`` (its activations recomputed in the
+backward, as ``jax.checkpoint`` of the scan body does), which changes no
+number. ``force_unroll`` is a cost-calibration knob of the JAX package and
+changes nothing here; its activation-sharding constraint is the identity on
+one device and is left out. ``loss_fn`` is the training loss. Mamba layers
+and the MoE FFN are not ported yet and raise NotImplementedError. Caches
+are updated in place (models/attention.py).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from . import attention, layers, moe
 from .common import LayerSpec, ModelConfig
@@ -193,10 +197,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator):
 # ------------------------------------------------------------------ forward
 
 
+def _mamba_not_ported(cfg) -> NotImplementedError:
+    return NotImplementedError(
+        f"{cfg.name}: Mamba layers are not ported to repro_torch yet (ROADMAP A.11, Mamba)")
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError, naming its ROADMAP item, when ``cfg`` has a
+    layer the port cannot run yet (Mamba, the MoE FFN)."""
+    for spec in cfg.layers:
+        if spec.kind != "attn":
+            raise _mamba_not_ported(cfg)
+        if spec.ffn == "moe":
+            raise moe.not_ported(cfg)
+
+
 def _run_layer(cfg, spec, p, x, aux, positions, cache, use_kernel):
     if spec.kind != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba layers are not ported to repro_torch yet (ROADMAP A.11, Mamba)")
+        raise _mamba_not_ported(cfg)
     x, nc = attention.attn_layer(
         x, p["attn"], cfg, spec, positions=positions,
         cache=None if cache is None else cache["mix"], use_kernel=use_kernel,
@@ -214,22 +232,46 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` per-block trees of a stacked tree: one ``torch.unbind`` a
+    leaf (views). Its backward stacks the blocks' gradients once; indexing
+    one block at a time would add a zero-filled full-size gradient a block."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _run_block(cfg, p_block, x, aux, positions, c_block, use_kernel):
+    """One repeat of ``cfg.block_pattern``. -> (x, aux)."""
+    for i, spec in enumerate(cfg.block_pattern):
+        key = f"l{i:02d}"
+        x, aux, _ = _run_layer(cfg, spec, p_block[key], x, aux, positions,
+                               None if c_block is None else c_block[key], use_kernel)
+    return x, aux
+
+
 def backbone(params, cfg: ModelConfig, x, positions, cache=None, use_kernel: str = "auto"):
     """Run all layers. x: (B, S, D). Returns (x, aux, cache), the cache
-    updated in place (None without one)."""
+    updated in place (None without one). Without a cache and under autograd,
+    ``cfg.remat == "block"`` recomputes each block's activations in the
+    backward."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layer_list = [(spec, params["prologue"][i], None if cache is None else cache["prologue"][i])
-                    for i, spec in enumerate(cfg.prologue)]
-    for b in range(cfg.n_blocks):
-        p_block = _index(params["blocks"], b)
+    for i, spec in enumerate(cfg.prologue):
+        x, aux, _ = _run_layer(cfg, spec, params["prologue"][i], x, aux, positions,
+                               None if cache is None else cache["prologue"][i], use_kernel)
+    remat = cfg.remat == "block" and cache is None and torch.is_grad_enabled()
+    for b, p_block in enumerate(_unstack(params["blocks"], cfg.n_blocks)):
         c_block = None if cache is None else _index(cache["blocks"], b)
-        for i, spec in enumerate(cfg.block_pattern):
-            key = f"l{i:02d}"
-            layer_list.append((spec, p_block[key], None if c_block is None else c_block[key]))
-    layer_list += [(spec, params["epilogue"][i], None if cache is None else cache["epilogue"][i])
-                     for i, spec in enumerate(cfg.epilogue)]
-    for spec, p, c in layer_list:
-        x, aux, _ = _run_layer(cfg, spec, p, x, aux, positions, c, use_kernel)
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _run_block, cfg, p_block, x, aux, positions, None, use_kernel,
+                use_reentrant=False)
+        else:
+            x, aux = _run_block(cfg, p_block, x, aux, positions, c_block, use_kernel)
+    for i, spec in enumerate(cfg.epilogue):
+        x, aux, _ = _run_layer(cfg, spec, params["epilogue"][i], x, aux, positions,
+                               None if cache is None else cache["epilogue"][i], use_kernel)
     return x, aux, cache
 
 
@@ -261,6 +303,21 @@ def forward(params, cfg: ModelConfig, inputs, positions=None, use_kernel: str = 
     x = embed_inputs(params, cfg, inputs)
     x, aux, _ = backbone(params, cfg, x, positions, use_kernel=use_kernel)
     return logits_fn(params, cfg, x), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Next-token CE (+ router aux). batch: {"inputs", "labels"}; labels < 0
+    are ignored. -> (loss, {"ce", "aux"}), 0-dim float32."""
+    logits, aux = forward(params, cfg, batch["inputs"])
+    labels = batch["labels"].long()
+    valid = labels >= 0
+    labels_safe = torch.where(valid, labels, 0)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels_safe[..., None])[..., 0]
+    denom = torch.clamp(valid.sum(), min=1)
+    ce = torch.where(valid, nll, 0.0).sum() / denom
+    loss = ce + cfg.router_aux_weight * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ------------------------------------------------------------------- decode

@@ -1,6 +1,7 @@
 """Rules of the PyTorch port (src/repro_torch, chip_smoke.py).
 
-- it imports neither JAX nor the JAX package;
+- it imports neither JAX nor the JAX package, nor msgpack or ml_dtypes
+  (the card's machine has neither);
 - ``default_device()`` is CUDA or an error, never a silent CPU fallback;
 - on a CPU tensor the ops run the plain versions, ``use_kernel="force"``
   raises, and the CUDA build is never reached, by the estimator or by a
@@ -56,7 +57,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     bad = [
         (str(p.relative_to(ROOT)), mod)
         for p in files for mod in _imported_modules(p)
-        if mod.split(".")[0] in ("jax", "jaxlib", "flax", "repro")
+        if mod.split(".")[0] in ("jax", "jaxlib", "flax", "repro", "msgpack", "ml_dtypes")
     ]
     assert bad == []
 
