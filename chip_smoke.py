@@ -82,13 +82,19 @@ result):
    with the kernels and through the plain versions (streamed in tiles of
    65,536 chunks, bit-identical to the whole exchange, so that their
    temporaries fit): the updates within relative L2 1e-3; (b) the training
-   CLI (tiny preset, 4 clients, 60 steps, a failure injected at step 20, a
-   resize to 3 clients at 40, checkpoints every 10): the loss falls, the
-   failure is recovered from a checkpoint, the resize happens, and the same
-   command with 70 steps resumes at step 60; the final checkpoint's bytes
-   and seconds; (c) 3 DME steps of tiny musicgen-medium and tiny gemma3-4b
-   from the same state on the card and the CPU: losses and parameters
-   within 1e-4;
+   CLI at its default arch, mamba2-130m (tiny preset, 4 clients, 60 steps,
+   a failure injected at step 20, a resize to 3 clients at 40, checkpoints
+   every 10): the loss falls, the failure is recovered from a checkpoint,
+   the resize happens, and the same command with 70 steps resumes at step
+   60; the final checkpoint's bytes and seconds; (c) 3 DME steps of tiny
+   musicgen-medium, gemma3-4b, mamba2-130m, deepseek-moe-16b and jamba from
+   the same state on the card and the CPU: losses and parameters within
+   1e-4; (d) mamba2-130m at full width, nothing cut (24 SSD layers,
+   129,100,224 float32 parameters, the estimator phases' tree, leaf for
+   leaf), 4 clients x batch 4 x 1024 tokens (4 SSD chunks of 256), the same
+   estimator, optimizer, timing, launch counts and profiled step as (a);
+   every client gradient leaf finite in every step; one step's update with
+   the kernels against the plain versions within 1e-6;
 5. profile one more shared-randomness round (torch.profiler): device time
    by kernel against the round's wall time; every K1, K3 and CG step launch
    in it must be the register-resident butterfly kernel, by name;
@@ -125,7 +131,18 @@ result):
    in it must be the wgmma kernel);
 9. tiny gemma (float32) through the kernel on the card and the plain
    versions on the CPU, with the same weights: logits within relative L2
-   1e-4 and equal greedy tokens over 8 decode steps;
+   1e-4 and equal greedy tokens over 8 decode steps; then mamba2-130m at
+   full width through ``serve`` in bf16 and in float32 (4 prompts of 2048
+   tokens, 8 SSD chunks, 32 greedy tokens; no kernel launches on its path):
+   prefill ms (first, median of 3 warm), decode ms a step, tokens/s, and
+   the last decode step's logits against a full forward over the prompt and
+   the generated tokens (relative L2 1e-3 in float32, 5e-2 in bf16); then
+   deepseek-moe-16b at full width, its dense prologue and 8 of its 27 MoE
+   blocks (5,206,349,824 float32 parameters), ``attn_impl="flash"``, bf16,
+   the same prompts and tokens: K5's bf16 route x 9 a prefill (counts zeroed
+   just before ``serve`` and read after), prefill and decode ms, the share
+   of routed slots the capacity (960 an expert) drops, last-position logits
+   within 5e-2 of the plain path on the card and equal first tokens;
 10. time each kernel at its main path's shapes (CUDA events, median of 10),
    beside its plain version, its bound and a one-call PyTorch equivalent (a
    dense float32 matmul or einsum for K1-K4, scaled_dot_product_attention
@@ -137,7 +154,10 @@ result):
    route's bound counts its operations at split TF32's 495 / 3 = 165
    TFLOP/s, the faster of the card's two float32-accurate rates
    (``bound_ms``), and also at the CUDA cores' 67 TFLOP/s
-   (``bound_ms_cuda_cores``, the bound a CUDA-core kernel would face).
+   (``bound_ms_cuda_cores``, the bound a CUDA-core kernel would face);
+   and K5's bf16 route once more at deepseek-moe-16b's prefill shape (16
+   heads of 128, 4 x 2048, window 0: ``flash_attention_bf16_d128``), its
+   launches from that serving run.
 
 The build phase prints ``-Xptxas -v``'s registers, shared memory and
 spills for both K5 kernels (one entry a padded d_head each) and for the
@@ -204,6 +224,9 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     # K5's two routes, by dtype
     "flash_attention_bf16": ("src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                              "src/repro/kernels/flash_attention.py:77"),
+    # the bf16 route at deepseek-moe-16b's prefill shape (d_head 128, window 0)
+    "flash_attention_bf16_d128": ("src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+                                  "src/repro/kernels/flash_attention.py:77"),
     "flash_attention_f32": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:77"),
 }
@@ -226,6 +249,14 @@ ESTIMATOR_KERNELS = ("fwht", "fwht_rowsigns", "srht_decode_sum", "srht_cg_step")
 GEMMA3_4B_PARAMS = 3_879_907_840
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_SEED = 4, 2048, 32, 0
 SERVE_WINDOWS = {1024: 29, 0: 5}  # window -> attention layers of gemma3-4b with it
+# mamba2-130m serving at full width: 2048 tokens are 8 SSD chunks of 256;
+# the last decode step's logits against a full forward, by compute dtype
+MAMBA_SERVE_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
+# deepseek-moe-16b serving (src/repro/configs/deepseek_moe_16b.py): its dense
+# prologue and 8 of its 27 MoE blocks; the whole model (16,375,728,128
+# float32 parameters, 65.5 GB) leaves under 8 GB beside what earlier phases hold
+MOE_SERVE_BLOCKS, MOE_SERVE_PARAMS = 8, 5_206_349_824
+MOE_SERVE_CAPACITY = 960  # slots an expert, at 4 x 2048 tokens
 
 
 def log(msg: str) -> None:
@@ -1440,12 +1471,19 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 128       # the training CLI's defaults, per client
 TRAIN_TIMED_STEPS = 5
 TRAIN_PLAIN_TILE = 65536   # chunks a tile of the plain reference's stream
 TRAIN_CG_STEPS = (1, 64)   # the decode's CG launches a step: at least one, at most cg_iters
-# (b): the CLI at its default preset: at "small" (31,465,984 parameters) the
-# loss rises over 60 steps of 16x compressed gradients in both packages
-TRAIN_CLI_PRESET, TRAIN_CLI_STEPS, TRAIN_CLI_RESUME_STEPS = "tiny", 60, 70
+# (b): the CLI at its default arch (mamba2-130m) and preset: at "small"
+# (musicgen-medium's 31,465,984 parameters) the loss rises over 60 steps of
+# 16x compressed gradients in both packages
+TRAIN_CLI_ARCH, TRAIN_CLI_PRESET = "mamba2-130m", "tiny"
+TRAIN_CLI_STEPS, TRAIN_CLI_RESUME_STEPS = 60, 70
 TRAIN_CLI_FAIL, TRAIN_CLI_RESIZE = 20, (40, 3)
 # (c): tiny configs on the card and the CPU
-TRAIN_SMALL_ARCHS, TRAIN_SMALL_STEPS = ("musicgen-medium", "gemma3-4b"), 3
+TRAIN_SMALL_ARCHS = ("musicgen-medium", "gemma3-4b", "mamba2-130m", "deepseek-moe-16b",
+                     "jamba-v0.1-52b")
+TRAIN_SMALL_STEPS = 3
+# (d): mamba2-130m at full width, nothing cut: 1024 tokens are 4 SSD chunks
+# of 256, so the cross-chunk recurrence and its backward run
+TRAIN_MAMBA_ARCH, TRAIN_MAMBA_SEQ = "mamba2-130m", 1024
 
 
 def _train_spec(use_kernel: str = "auto"):
@@ -1478,18 +1516,22 @@ class _ClockedOptimizer:
         return out
 
 
-def _clock_collective(marks: list):
+def _clock_collective(marks: list, finite: list):
     """Patch ``dist.collectives.compressed_mean_tree`` (which the train step
     calls through the module) to append ("compressed_mean_tree", event
-    before, event after) to ``marks``; -> the restore function."""
+    before, event after) to ``marks``, and after it to ``finite`` a device
+    tensor of one flag a leaf of its stacked client gradients: all finite
+    (read after the step, so nothing syncs inside it); -> the restore
+    function."""
     from repro_torch.dist import collectives
 
     saved = collectives.compressed_mean_tree
 
-    def call(*args, **kw):
+    def call(spec, key, tree, *args, **kw):
         before = _event()
-        out = saved(*args, **kw)
+        out = saved(spec, key, tree, *args, **kw)
         marks.append(("compressed_mean_tree", before, _event()))
+        finite.append(torch.stack([torch.isfinite(leaf).all() for leaf in _leaves(tree)]))
         return out
 
     collectives.compressed_mean_tree = call
@@ -1549,37 +1591,35 @@ def _aten_ops(fn) -> int:
     return Count.n
 
 
-def _train_full_width(smi: str) -> dict:
-    """(a) musicgen-medium at full width (24 of 48 layers), 4 clients: a warm
-    step and 5 timed ones through ``make_train_step``, each split into the
-    clients' forward and backward, compressed_mean_tree and the optimizer;
-    launches a step; then one more step from the same state with the
-    kernels and through the plain versions."""
-    from repro_torch import configs
+def _train_cell(smi: str, tag: str, cfg, n_params: int, seq: int, gap_limit: float) -> dict:
+    """One full-width training cell, 4 clients: a warm step and 5 timed ones
+    through ``make_train_step``, each split into the clients' forward and
+    backward, compressed_mean_tree and the optimizer; launches a step; one
+    profiled step; then one more step from the same state with the kernels
+    and through the plain versions (update gap within ``gap_limit``). Every
+    stacked client gradient leaf of every step must be finite."""
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import ops
     from repro_torch.models import init_params
     from repro_torch.train import init_train_state, make_train_step
 
-    _flash_refusal()
-    cfg = configs.preset_config(TRAIN_ARCH, TRAIN_PRESET).replace(n_blocks=TRAIN_BLOCKS)
-    if cfg.n_params() != TRAIN_PARAMS:
-        fail(f"(a) {cfg.name} at {TRAIN_BLOCKS} blocks has {cfg.n_params()} parameters, not "
-             f"{TRAIN_PARAMS}")
+    if cfg.n_params() != n_params:
+        fail(f"({tag}) {cfg.name} at {cfg.n_blocks} blocks has {cfg.n_params()} parameters, "
+             f"not {n_params}")
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
-    opt, marks = _train_opt(), []
+    opt, marks, finite = _train_opt(), [], []
     state = init_train_state(cfg, opt, params, _train_spec(), N_CLIENTS)
-    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, batch=TRAIN_BATCH,
                        n_clients=N_CLIENTS, seed=0)
     step_fn = make_train_step(cfg, _ClockedOptimizer(opt, marks), dme_spec=_train_spec(),
                               device=DEV)
     torch.cuda.synchronize()
-    log(f"train (a): {cfg.name}, {cfg.n_blocks} of 48 blocks, {cfg.n_params()} float32 "
+    log(f"train ({tag}): {cfg.name}, {cfg.n_blocks} blocks, {cfg.n_params()} float32 "
         f"parameters, {cfg.dtype} compute, remat {cfg.remat}, {N_CLIENTS} clients x batch "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens; state built in {time.perf_counter() - t0:.1f} s")
+        f"{TRAIN_BATCH} x {seq} tokens; state built in {time.perf_counter() - t0:.1f} s")
     rows = []
-    restore = _clock_collective(marks)
+    restore = _clock_collective(marks, finite)
     try:
         for step in range(1 + TRAIN_TIMED_STEPS):
             batch = data.batch_at(step, DEV)
@@ -1598,8 +1638,8 @@ def _train_full_width(smi: str) -> dict:
                                                               _leaves(new_params)))
                              if torch.equal(a, b)]
                 if unchanged:
-                    fail(f"(a) the first step left parameter leaves {unchanged} unchanged: a "
-                         "gradient skipped them")
+                    fail(f"({tag}) the first step left parameter leaves {unchanged} unchanged: "
+                         "a gradient skipped them")
             params, state = new_params, new_state
             spans = {name: before.elapsed_time(after) for name, before, after in marks}
             row = {"step": step, "wall_ms": start.elapsed_time(end),
@@ -1610,24 +1650,27 @@ def _train_full_width(smi: str) -> dict:
                    **{k: float(v) for k, v in metrics.items()},
                    "launches": {k: v - counts.get(k, 0) for k, v in ops.launch_counts().items()
                                 if v != counts.get(k, 0)}}
+            bad = [i for i, ok in enumerate(finite.pop().tolist()) if not ok]
+            if bad:
+                fail(f"({tag}) step {step}: client gradient leaves {bad} are not finite")
             if step > 0:
                 row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             rows.append(row)
-            log(f"train (a) step [{smi}] " + json.dumps(row))
+            log(f"train ({tag}) step [{smi}] " + json.dumps(row))
     finally:
         restore()
     window = ops.launch_counts()  # ... and closes here
     for r in rows:
         if not np.isfinite(r["loss"]):
-            fail(f"(a) step {r['step']}: loss {r['loss']}")
+            fail(f"({tag}) step {r['step']}: loss {r['loss']}")
         if r["step"] == 0:
             continue
         launched = dict(r["launches"])
         steps = launched.pop("srht_cg_step", 0)
         lo, hi = TRAIN_CG_STEPS
         if launched != {"fwht": N_CLIENTS, "srht_decode_sum": 1} or not lo <= steps <= hi:
-            fail(f"(a) step {r['step']} launched {r['launches']}: not K1 x {N_CLIENTS}, K3 x 1 "
-                 f"and {lo}-{hi} CG steps, and no K4 alone nor K5")
+            fail(f"({tag}) step {r['step']} launched {r['launches']}: not K1 x {N_CLIENTS}, "
+                 f"K3 x 1 and {lo}-{hi} CG steps, and no K4 alone nor K5")
     # one more step from the same state: with the kernels, and through the
     # plain versions, streamed in tiles (bit-identical to the whole
     # exchange) so that their (n, C, d) temporaries fit beside the state
@@ -1639,9 +1682,9 @@ def _train_full_width(smi: str) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     profile = {"wall_ms": wall_ms, "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
                "top_device_ms": [[name[:160], ms] for name, ms in top]}
-    log(f"train (a) profiled step [{smi}] " + json.dumps(profile))
+    log(f"train ({tag}) profiled step [{smi}] " + json.dumps(profile))
     profile["aten_ops"] = _aten_ops(lambda: step_fn(params, state, batch, step))
-    log(f"train (a): one step dispatches {profile['aten_ops']} aten ops from the host")
+    log(f"train ({tag}): one step dispatches {profile['aten_ops']} aten ops from the host")
     kernel = make_train_step(cfg, opt, dme_spec=_train_spec(), device=DEV)(
         params, state, batch, step)
     kernel_params, k_metrics = kernel[0], kernel[2]
@@ -1660,12 +1703,44 @@ def _train_full_width(smi: str) -> dict:
            "peak_gb": max(r["peak_gb"] for r in timed),
            "median_ms": {key: statistics.median(r[key] for r in timed) for key in
                          ("wall_ms", "fwd_bwd_ms", "compressed_mean_tree_ms", "optimizer_ms")}}
-    log(f"train (a) [{smi}] " + json.dumps({k: v for k, v in out.items()
-                                           if k not in ("rows", "profile")}))
-    if not gap <= 1e-3:
-        fail(f"(a) one step's update with the kernels and through the plain versions differ "
-             f"by {gap} (limit 1e-3)")
+    log(f"train ({tag}) [{smi}] " + json.dumps({k: v for k, v in out.items()
+                                               if k not in ("rows", "profile")}))
+    if not gap <= gap_limit:
+        fail(f"({tag}) one step's update with the kernels and through the plain versions "
+             f"differ by {gap} (limit {gap_limit})")
     return out
+
+
+def _train_full_width(smi: str) -> dict:
+    """(a) musicgen-medium at full width, 24 of its 48 layers, 128 tokens;
+    first K5's refusal under grad."""
+    from repro_torch import configs
+
+    _flash_refusal()
+    cfg = configs.preset_config(TRAIN_ARCH, TRAIN_PRESET).replace(n_blocks=TRAIN_BLOCKS)
+    return _train_cell(smi, "a", cfg, TRAIN_PARAMS, TRAIN_SEQ, 1e-3)
+
+
+def _train_mamba(smi: str) -> dict:
+    """(d) mamba2-130m at full width, nothing cut, 1024 tokens (4 SSD chunks
+    of 256): its parameter tree is the estimator phases' tree; every client
+    gradient leaf must be finite in every step."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cfg = configs.preset_config(TRAIN_MAMBA_ARCH, "full")
+
+    def meta(node):  # a tree of shapes as meta tensors
+        return {k: meta(v) for k, v in node.items()} if isinstance(node, dict) else \
+            torch.empty(node, device="meta")
+
+    shapes = [tuple(t.shape) for t in _leaves(transformer.map_defs(
+        lambda d: torch.empty(d.shape, device="meta"), transformer.param_defs(cfg)))]
+    if shapes != [tuple(t.shape) for t in _leaves(meta(MAMBA2_130M_LEAVES))]:
+        fail(f"(d) {cfg.name}'s parameter shapes {shapes} are not the estimator tree's")
+    if cfg.mamba_chunk * 4 != TRAIN_MAMBA_SEQ:
+        fail(f"(d) {TRAIN_MAMBA_SEQ} tokens are not 4 SSD chunks of {cfg.mamba_chunk}")
+    return _train_cell(smi, "d", cfg, MAMBA2_130M_PARAMS, TRAIN_MAMBA_SEQ, 1e-6)
 
 
 class _Tee:
@@ -1714,24 +1789,24 @@ def _train_cli_run(argv: list) -> tuple:
 
 
 def _train_cli(smi: str) -> dict:
-    """(b) the CLI (launch.train.main) on the card: musicgen-medium at the
-    CLI's default preset, 4 clients, a failure injected and recovered from a
-    checkpoint, an elastic resize to 3 clients; then the same command with
-    more steps resumes from the last checkpoint."""
+    """(b) the CLI (launch.train.main) on the card at its default arch
+    (mamba2-130m) and preset, 4 clients, a failure injected and recovered
+    from a checkpoint, an elastic resize to 3 clients; then the same command
+    with more steps resumes from the last checkpoint."""
     import tempfile
 
     from repro_torch.train import checkpoint as ckpt_lib
 
     fail_at, (resize_at, resize_to) = TRAIN_CLI_FAIL, TRAIN_CLI_RESIZE
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        argv = ["--arch", TRAIN_ARCH, "--preset", TRAIN_CLI_PRESET, "--clients", str(N_CLIENTS),
-                "--ckpt-every", "10", "--ckpt-dir", tmp]
+        argv = ["--preset", TRAIN_CLI_PRESET, "--clients", str(N_CLIENTS),
+                "--ckpt-every", "10", "--ckpt-dir", tmp]  # the default arch
         t0 = time.perf_counter()
         hist, text, final = _train_cli_run(argv + [
             "--steps", str(TRAIN_CLI_STEPS), "--inject-failures", str(fail_at),
             "--resize", f"{resize_at}:{resize_to}"])
         seconds = time.perf_counter() - t0
-        ck = os.path.join(tmp, f"{TRAIN_ARCH}_{TRAIN_CLI_PRESET}")
+        ck = os.path.join(tmp, f"{TRAIN_CLI_ARCH}_{TRAIN_CLI_PRESET}")
         if not hist or not hist[-1][1] < hist[0][1]:
             fail(f"(b) the loss did not fall: {hist}")
         if f"step {fail_at} failed (injected node failure at step {fail_at}); restoring" \
@@ -1776,7 +1851,7 @@ def _train_small(arch: str, dev) -> tuple:
 
 
 def _train_card_vs_cpu(smi: str) -> dict:
-    """(c) 3 DME steps of tiny musicgen-medium and tiny gemma3-4b from the
+    """(c) 3 DME steps of each tiny config of TRAIN_SMALL_ARCHS from the
     same state on the card (the kernels) and the CPU (the plain versions)."""
     out = {}
     for arch in TRAIN_SMALL_ARCHS:
@@ -1795,16 +1870,17 @@ def _train_card_vs_cpu(smi: str) -> dict:
 
 def phase_train(smi: str) -> dict:
     """The training path on the card: (a) musicgen-medium at full width
-    (24 of 48 layers), (b) the CLI with a failure, a resize and a resume,
-    (c) tiny configs on the card against the CPU. Fatal on any failed
-    check."""
-    start = time.perf_counter()
-    out = {"a": _train_full_width(smi)}
-    torch.cuda.empty_cache()
-    out["b"] = _train_cli(smi)
-    out["c"] = _train_card_vs_cpu(smi)
-    torch.cuda.empty_cache()
-    log(f"train: phase done in {time.perf_counter() - start:.1f} s")
+    (24 of 48 layers), (b) the CLI at its default arch with a failure, a
+    resize and a resume, (c) tiny configs on the card against the CPU, (d)
+    mamba2-130m at full width. Fatal on any failed check."""
+    start, out, seconds = time.perf_counter(), {}, {}
+    for tag, run in (("a", _train_full_width), ("b", _train_cli), ("c", _train_card_vs_cpu),
+                     ("d", _train_mamba)):
+        t0 = time.perf_counter()
+        out[tag] = run(smi)
+        torch.cuda.empty_cache()
+        seconds[tag] = time.perf_counter() - t0
+    log(f"train: phase done in {time.perf_counter() - start:.1f} s; by part {seconds}")
     return out
 
 
@@ -2192,6 +2268,182 @@ def phase_serve_profile(params, cfg, prompts) -> dict:
     return out
 
 
+def _prefill_walls(params, cfg, prompts, n: int = 3) -> list:
+    """Wall ms of ``n`` warm prefills (host clock around a synchronised
+    call, each from an empty cache)."""
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _greedy(params, cfg, prompts, 0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def _prefill_profile(what: str, params, cfg, prompts, smi: str) -> dict:
+    """Where one prefill's time goes: device time by kernel against its
+    wall time (torch.profiler)."""
+    from repro_torch.models import transformer
+
+    cache = transformer.init_cache(cfg, prompts.shape[0], prompts.shape[1], device=prompts.device)
+    by_name, wall_ms, _ = _profiled(lambda: transformer.prefill(params, cfg, cache, prompts))
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {"wall_ms": wall_ms, "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
+           "top_device_ms": [[name[:160], ms] for name, ms in top]}
+    log(f"serve {what} profile, prefill [{smi}] " + json.dumps(out))
+    return out
+
+
+def _serve_row(res, walls, gen) -> dict:
+    batch = res["tokens"].shape[0]
+    return {"prefill_ms_first": res["prefill_s"] * 1e3,
+            "prefill_ms_warm_median3": statistics.median(walls), "prefill_ms_warm": walls,
+            "decode_ms_per_step": res["decode_s"] * 1e3 / (gen - 1),
+            "decode_tokens_per_s": batch * (gen - 1) / res["decode_s"]}
+
+
+def _check_tokens(what: str, res, cfg, batch: int, gen: int) -> None:
+    tokens, logits = res["tokens"], res["prefill_logits"][:, -1]
+    if tokens.shape != (batch, gen) or not torch.isfinite(logits).all():
+        fail(f"{what}: tokens {tuple(tokens.shape)}, finite logits "
+             f"{bool(torch.isfinite(logits).all())}")
+    if int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
+        fail(f"{what}: a token outside the vocabulary")
+
+
+def phase_serve_mamba(smi: str) -> dict:
+    """mamba2-130m at full width through launch.serve.serve, in bf16 and
+    then float32: 4 prompts of 2048 tokens (8 SSD chunks), 32 greedy tokens;
+    no kernel of the port runs on this path. Decode must agree with the
+    chunked scan: the last decode step's logits against a full forward over
+    the prompt and the generated tokens, at that position."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    start = time.perf_counter()
+    cfg = configs.preset_config("mamba2-130m", "full")
+    if cfg.n_params() != MAMBA2_130M_PARAMS or SERVE_PROMPT != 8 * cfg.mamba_chunk:
+        fail(f"mamba2-130m: {cfg.n_params()} parameters, chunk {cfg.mamba_chunk}")
+    params = transformer.init_params(cfg, torch.Generator(device=DEV).manual_seed(SERVE_SEED))
+    out = {}
+    for c in (cfg, cfg.replace(dtype="float32")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()  # this serving run's window opens here
+        res = serve.serve(c, params, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+                          seed=SERVE_SEED, device=DEV)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()  # ... and closes here
+        if launches:
+            fail(f"mamba2-130m serving ({c.dtype}) launched {launches}; its path has no kernel")
+        _check_tokens(f"mamba2-130m serving ({c.dtype})", res, c, SERVE_BATCH, SERVE_GEN)
+        prompts = res["prompts"]
+        row = _serve_row(res, _prefill_walls(params, c, prompts), SERVE_GEN)
+        toks, step_logits = _greedy(params, c, prompts, SERVE_GEN - 1)
+        full, _ = transformer.forward(params, c, torch.cat([prompts, toks[:, :-1]], dim=1))
+        gap = rel_l2(step_logits[-1], full[:, -1])
+        del full
+        row.update(decode_vs_forward_gap=gap, tokens_equal_serve=bool(torch.equal(toks, res["tokens"])),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   tokens_request0=res["tokens"][0].tolist())
+        out[c.dtype] = row
+        log(f"serve mamba2-130m {c.dtype} [{smi}] " + json.dumps(row))
+        if not gap <= MAMBA_SERVE_TOL[c.dtype]:
+            fail(f"mamba2-130m ({c.dtype}): the last decode step's logits differ from the full "
+                 f"forward's by {gap} (limit {MAMBA_SERVE_TOL[c.dtype]})")
+    out["profile"] = _prefill_profile("mamba2-130m bfloat16", params, cfg, prompts, smi)
+    out["seconds"] = time.perf_counter() - start
+    log(f"serve mamba2-130m: phase done in {out['seconds']:.1f} s")
+    return out
+
+
+def _count_drops(dropped: list):
+    """Patch ``models.moe.dispatch`` to append each call's dropped slots
+    (a device tensor) and its slot count to ``dropped``; -> the restore
+    function."""
+    from repro_torch.models import moe
+
+    saved = moe.dispatch
+
+    def dispatch(sel, n_experts, cap):
+        out = saved(sel, n_experts, cap)
+        dropped.append(((~out[3]).sum(), out[3].numel()))
+        return out
+
+    moe.dispatch = dispatch
+    return lambda: setattr(moe, "dispatch", saved)
+
+
+def phase_serve_moe(smi: str) -> dict:
+    """deepseek-moe-16b at full width, its dense prologue and 8 of 27 MoE
+    blocks, ``attn_impl="flash"``, bf16, through launch.serve.serve: 4
+    prompts of 2048 tokens, 32 greedy tokens. K5's bf16 route must launch
+    once per attention layer of the prefill (9); the prefill's last-position
+    logits against the plain path on the card; the share of routed slots
+    that the capacity (960 an expert) drops in a prefill."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import moe, transformer
+
+    start = time.perf_counter()
+    cfg = configs.preset_config("deepseek-moe-16b", "full").replace(
+        n_blocks=MOE_SERVE_BLOCKS, attn_impl="flash")
+    n_tokens = SERVE_BATCH * SERVE_PROMPT
+    if cfg.n_params() != MOE_SERVE_PARAMS or moe.capacity(cfg, n_tokens) != MOE_SERVE_CAPACITY:
+        fail(f"deepseek-moe-16b at {MOE_SERVE_BLOCKS} blocks: {cfg.n_params()} parameters, "
+             f"capacity {moe.capacity(cfg, n_tokens)}")
+    params = transformer.init_params(cfg, torch.Generator(device=DEV).manual_seed(SERVE_SEED))
+    torch.cuda.synchronize()
+    log(f"serve deepseek-moe-16b: {cfg.n_params()} float32 parameters ({cfg.n_layers} layers) "
+        f"on the card in {time.perf_counter() - start:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()  # the serving path's window opens here
+    res = serve.serve(cfg, params, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+                      seed=SERVE_SEED, device=DEV)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()  # ... and closes here
+    n_attn = sum(1 for spec in cfg.layers if spec.kind == "attn")
+    if launches != {"flash_attention_bf16": n_attn}:
+        fail(f"deepseek-moe-16b serving launched {launches}, not K5's bf16 kernel x {n_attn}")
+    _check_tokens("deepseek-moe-16b serving", res, cfg, SERVE_BATCH, SERVE_GEN)
+    prompts, logits = res["prompts"], res["prefill_logits"][:, -1]
+    row = _serve_row(res, _prefill_walls(params, cfg, prompts), SERVE_GEN)
+    dropped = []
+    restore = _count_drops(dropped)
+    try:
+        _greedy(params, cfg, prompts, 0)
+    finally:
+        restore()
+    n_dropped = sum(int(d) for d, _ in dropped)
+    n_slots = sum(n for _, n in dropped)
+    plain_tok, plain = _greedy(params, cfg, prompts, 0, "never")
+    gap = rel_l2(logits, plain[0])
+    first_same = bool(torch.equal(res["tokens"][:, :1], plain_tok))
+    profile = _prefill_profile("deepseek-moe-16b", params, cfg, prompts, smi)
+    row.update(launches=launches, moe_layers=len(dropped), dropped_slots=n_dropped,
+               routed_slots=n_slots, dropped_share=n_dropped / n_slots,
+               logits_gap_bf16=gap, first_tokens_agree_bf16=first_same,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               tokens_request0=res["tokens"][0].tolist(), profile=profile)
+    del params, plain
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - start
+    log(f"serve deepseek-moe-16b [{smi}] " + json.dumps(row))
+    if len(dropped) != MOE_SERVE_BLOCKS or n_slots != MOE_SERVE_BLOCKS * n_tokens * cfg.top_k_experts:
+        fail(f"deepseek-moe-16b: {len(dropped)} routed layers, {n_slots} slots in a prefill")
+    if not gap <= 5e-2 or not first_same:
+        fail(f"deepseek-moe-16b bf16 prefill: kernel and plain logits differ by {gap} (limit "
+             f"5e-2), first tokens equal: {first_same}")
+    return row
+
+
 # -------------------------------------------------------------------- phase 9
 
 def phase_tiny_gemma() -> None:
@@ -2421,6 +2673,43 @@ def phase_flash_timing(inp: dict, launches: dict, errs: Errors) -> list:
     return out
 
 
+def phase_flash_timing_d128(launches: dict, errs: Errors) -> dict:
+    """K5's bf16 route at deepseek-moe-16b's prefill shape (16 heads of
+    128, 4 x 2048, window 0, no GQA): against its plain version (the grid's
+    bf16 tolerance), its bound, and scaled_dot_product_attention;
+    ``launches`` is the count from the deepseek serving run."""
+    from repro_torch.kernels import ops
+
+    name = "flash_attention_bf16_d128"
+    g = torch.Generator(device=DEV).manual_seed(78)
+    q, k, v = _qkv(g, SERVE_BATCH * 16, 1, SERVE_PROMPT, SERVE_PROMPT, 128, torch.bfloat16)
+    call = lambda u: ops.flash_attention(q, k, v, rep=1, window=0, use_kernel=u)
+    atol, rtol = _flash_tol(torch.bfloat16, 0, 0)
+    errs.check(name, call("force"), call("never"), exact=False, rtol=rtol, atol=atol,
+               what="deepseek-moe-16b prefill shape")
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                                   is_causal=True)
+    gap = rel_l2(lib()[0].float(), call("force").float())
+    if not gap <= 2e-2:
+        fail(f"{name}: the library yardstick differs by {gap}")
+    n_q, sq, dh = q.shape
+    n_ops = 4 * dh * n_q * _flash_pairs(sq, sq, 0)
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))  # q, k, v in; o out
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / BF16_OPS_PER_S * 1e3
+    ms = time_ms(lambda: call("force"))
+    out = {"name": name, "route": "cuda", "source": KERNELS[name][0],
+           "replaces": KERNELS[name][1], "launches": int(launches.get("flash_attention_bf16", 0)),
+           "max_abs_err": errs.max[name], "ms": ms,
+           "plain_ms": time_ms(lambda: call("never"), reps=3, warmup=1),
+           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": time_ms(lib), "bound_share": max(t_bytes, t_ops) / ms,
+           "tflops": n_ops / ms / 1e9, "library_rel_gap": gap,
+           "shape": {"q": list(q.shape), "kv": list(k.shape), "window": 0}}
+    out["over_library"] = ms / out["library_ms"]
+    log(f"{name}: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2451,9 +2740,12 @@ def main() -> int:
     flash_inputs = phase_flash_checks(errs)
     serve_out = phase_serve()
     phase_tiny_gemma()
+    phase_serve_mamba(smi)
+    moe_serve = phase_serve_moe(smi)
     kernels = phase_timing(calls, launches, errs, inputs)
     kernels += phase_flash_timing(
         flash_inputs, {**serve_out["launches"], **serve_out["launches_f32_serving"]}, errs)
+    kernels.append(phase_flash_timing_d128(moe_serve["launches"], errs))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

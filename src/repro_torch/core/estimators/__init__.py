@@ -1,5 +1,6 @@
 """Estimator implementations; importing this package registers every codec
-in the codec registry (estimators.base)."""
+in the codec registry (estimators.base). The functional wrappers (encode,
+decode, self_decode, encode_all, mean_estimate) delegate to core.codec."""
 from . import (  # noqa: F401
     identity,
     induced,
@@ -9,4 +10,15 @@ from . import (  # noqa: F401
     sparse_proj,
     top_k,
     wangni,
+)
+from .base import (  # noqa: F401
+    Codec,
+    decode,
+    encode,
+    encode_all,
+    get,
+    mean_estimate,
+    names,
+    register,
+    self_decode,
 )

@@ -68,3 +68,40 @@ def no_draws(spec, draws) -> None:
     if draws is not None:
         raise ValueError(f"{spec.name} draws nothing from the round key; got draws "
                          f"{sorted(draws)}")
+
+
+# --------------------------------------------------------------------------
+# Functional convenience API over a sparsifier config or a Pipeline: thin
+# delegation to core.codec (imported lazily: codec imports this module for
+# the registry).
+
+
+def _pipe(spec):
+    from .. import codec
+
+    return codec.as_pipeline(spec)
+
+
+def encode(spec, key, client_id, x_cd, side_info=None):
+    return _pipe(spec).encode(key, client_id, x_cd, side_info=side_info)[0]
+
+
+def decode(spec, key, payloads, n: int, client_ids=None, side_info=None, chunk_offset=0):
+    return _pipe(spec).decode(key, payloads, n, client_ids=client_ids, side_info=side_info,
+                              chunk_offset=chunk_offset)
+
+
+def self_decode(spec, key, client_id, payload):
+    return _pipe(spec).self_decode(key, client_id, payload)
+
+
+def encode_all(spec, key, xs, client_ids=None, side_info=None):
+    """xs: (n, C, d) -> stacked payloads (leading n)."""
+    return _pipe(spec).encode_all(key, xs, client_ids=client_ids, side_info=side_info)[0]
+
+
+def mean_estimate(spec, key, xs, client_ids=None, side_info=None, device=None):
+    """One-shot DME on ``device`` (the card when None): xs (n, C, d) client
+    chunks -> (C, d) mean estimate."""
+    return _pipe(spec).mean_estimate(key, xs, client_ids=client_ids, side_info=side_info,
+                                     device=device)

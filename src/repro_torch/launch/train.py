@@ -11,10 +11,9 @@ plain versions).
   route of ``dist.collectives``.
 - Fault tolerance: checkpoints every --ckpt-every steps; restart the same
   command line and it resumes; --inject-failures demonstrates recovery.
-- The default arch, mamba2-130m, and the MoE archs raise
-  NotImplementedError until their layers are ported (ROADMAP A.11);
-  --pipeline-stages is ROADMAP A.9. The default --ckpt-dir is repro_ckpt
-  under the temporary directory (/tmp unless TMPDIR says otherwise).
+- Every arch trains; the default is mamba2-130m. --pipeline-stages is
+  ROADMAP A.9 and raises. The default --ckpt-dir is repro_ckpt under the
+  temporary directory (/tmp unless TMPDIR says otherwise).
 """
 from __future__ import annotations
 

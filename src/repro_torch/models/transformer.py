@@ -1,5 +1,6 @@
 """Config -> model (port of repro/models/transformer.py): parameter
-definitions, init, forward, prefill and decode for attention-only models.
+definitions, init, forward, prefill and decode for every config: attention
+and Mamba (SSD) layers, dense and routed MoE FFNs.
 
 ``param_defs(cfg)`` is the one structural source of truth, a tree of
 ParamDef with the JAX package's layout: the repeated block's weights are
@@ -13,9 +14,8 @@ through ``torch.utils.checkpoint`` (its activations recomputed in the
 backward, as ``jax.checkpoint`` of the scan body does), which changes no
 number. ``force_unroll`` is a cost-calibration knob of the JAX package and
 changes nothing here; its activation-sharding constraint is the identity on
-one device and is left out. ``loss_fn`` is the training loss. Mamba layers
-and the MoE FFN are not ported yet and raise NotImplementedError. Caches
-are updated in place (models/attention.py).
+one device and is left out. ``loss_fn`` is the training loss. Caches are
+updated in place (models/attention.py, models/mamba.py).
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 import torch.utils.checkpoint
 
-from . import attention, layers, moe
+from . import attention, layers, mamba, moe
 from .common import LayerSpec, ModelConfig
 
 
@@ -197,32 +197,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator):
 # ------------------------------------------------------------------ forward
 
 
-def _mamba_not_ported(cfg) -> NotImplementedError:
-    return NotImplementedError(
-        f"{cfg.name}: Mamba layers are not ported to repro_torch yet (ROADMAP A.11, Mamba)")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, when ``cfg`` has a
-    layer the port cannot run yet (Mamba, the MoE FFN)."""
-    for spec in cfg.layers:
-        if spec.kind != "attn":
-            raise _mamba_not_ported(cfg)
-        if spec.ffn == "moe":
-            raise moe.not_ported(cfg)
-
-
 def _run_layer(cfg, spec, p, x, aux, positions, cache, use_kernel):
-    if spec.kind != "attn":
-        raise _mamba_not_ported(cfg)
-    x, nc = attention.attn_layer(
-        x, p["attn"], cfg, spec, positions=positions,
-        cache=None if cache is None else cache["mix"], use_kernel=use_kernel,
-    )
+    mix = None if cache is None else cache["mix"]
+    if spec.kind == "attn":
+        x, _ = attention.attn_layer(x, p["attn"], cfg, spec, positions=positions, cache=mix,
+                                    use_kernel=use_kernel)
+    else:
+        x, _ = mamba.mamba_layer(x, p["mamba"], cfg, cache=mix)
     if spec.ffn != "none":
         x, a = moe.ffn_layer(x, p["ffn"], cfg, spec)
         aux = aux + a
-    return x, aux, (None if cache is None else {"mix": nc})
+    return x, aux
 
 
 def _index(tree, i: int):
@@ -246,8 +231,8 @@ def _run_block(cfg, p_block, x, aux, positions, c_block, use_kernel):
     """One repeat of ``cfg.block_pattern``. -> (x, aux)."""
     for i, spec in enumerate(cfg.block_pattern):
         key = f"l{i:02d}"
-        x, aux, _ = _run_layer(cfg, spec, p_block[key], x, aux, positions,
-                               None if c_block is None else c_block[key], use_kernel)
+        x, aux = _run_layer(cfg, spec, p_block[key], x, aux, positions,
+                            None if c_block is None else c_block[key], use_kernel)
     return x, aux
 
 
@@ -258,8 +243,8 @@ def backbone(params, cfg: ModelConfig, x, positions, cache=None, use_kernel: str
     backward."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(cfg.prologue):
-        x, aux, _ = _run_layer(cfg, spec, params["prologue"][i], x, aux, positions,
-                               None if cache is None else cache["prologue"][i], use_kernel)
+        x, aux = _run_layer(cfg, spec, params["prologue"][i], x, aux, positions,
+                            None if cache is None else cache["prologue"][i], use_kernel)
     remat = cfg.remat == "block" and cache is None and torch.is_grad_enabled()
     for b, p_block in enumerate(_unstack(params["blocks"], cfg.n_blocks)):
         c_block = None if cache is None else _index(cache["blocks"], b)
@@ -270,8 +255,8 @@ def backbone(params, cfg: ModelConfig, x, positions, cache=None, use_kernel: str
         else:
             x, aux = _run_block(cfg, p_block, x, aux, positions, c_block, use_kernel)
     for i, spec in enumerate(cfg.epilogue):
-        x, aux, _ = _run_layer(cfg, spec, params["epilogue"][i], x, aux, positions,
-                               None if cache is None else cache["epilogue"][i], use_kernel)
+        x, aux = _run_layer(cfg, spec, params["epilogue"][i], x, aux, positions,
+                            None if cache is None else cache["epilogue"][i], use_kernel)
     return x, aux, cache
 
 
@@ -324,14 +309,15 @@ def loss_fn(params, cfg: ModelConfig, batch):
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, device=None):
-    """Empty KV cache in the JAX package's layout (blocks stacked), zeros
-    with every position -1; ``device="meta"`` gives the shapes alone."""
+    """Empty cache in the JAX package's layout (blocks stacked): an
+    attention layer's KV zeros with every position -1, a Mamba layer's conv
+    history and float32 SSM state zeros; ``device="meta"`` gives the shapes
+    alone."""
     dtype = dtype or cfg.compute_dtype
 
     def one(spec: LayerSpec):
         if spec.kind != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba caches are not ported to repro_torch yet (ROADMAP A.11, Mamba)")
+            return {"mix": mamba.init_mamba_cache(cfg, batch, dtype, device)}
         return {"mix": attention.init_attn_cache(cfg, spec, batch, seq_len, dtype, device)}
 
     cache = {

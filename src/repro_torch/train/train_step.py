@@ -86,7 +86,6 @@ def make_train_step(cfg, optimizer, *, dme_spec=None, mesh=None, client_axes=("p
     if dme_impl == "shard_map":
         raise NotImplementedError("dme_impl='shard_map' is not ported to repro_torch yet "
                                   "(ROADMAP A.9)")
-    transformer.check_ported(cfg)
     dev = resolve_device(device)
 
     def _on_device(batch):

@@ -20,7 +20,8 @@ token batches (some labels -1, ignored) fed to both:
   ``compressed_mean_tree`` at ``fold_in(key(seed), step)``, AdamW); the data
   pipeline's determinism and non-IID skew on the port's own draws; the
   checkpoint and supervisor twins of tests/test_fault_tolerance.py on tiny
-  musicgen-medium (Mamba is not ported); the CLI; the refusals.
+  musicgen-medium; the CLI, and its default arch (mamba2-130m) for a step;
+  the refusals.
 
 The JAX side is a few jitted programs compiled without XLA's costly passes
 (one for the gradients and one for each step kind an arch runs).
@@ -560,6 +561,14 @@ def test_cli_trains_recovers_resizes_and_resumes(tmp_path, capsys):
     assert hist == [] and ckpt.latest_step(str(ck)) == 13
 
 
+def test_cli_default_arch_takes_a_step(tmp_path, capsys):
+    """The CLI's default arch, mamba2-130m (tiny), trains: one DME step."""
+    hist = tlaunch.main(["--device", "cpu", "--steps", "1", "--seq", "16",
+                         "--ckpt-dir", str(tmp_path)])
+    assert "mamba2-130m preset=tiny" in capsys.readouterr().out
+    assert [s for s, _ in hist] == [0] and np.isfinite(hist[0][1])
+
+
 # ---------------------------------------------------------------- refusals
 
 
@@ -571,10 +580,6 @@ def test_unported_options_raise():
                            dme_impl="shard_map"), r"shard_map.*ROADMAP A\.9")):
         with pytest.raises(NotImplementedError, match=item):
             make_train_step(cfg, AdamW(), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match=r"MoE.*ROADMAP A\.11"):
-        make_train_step(tconfigs.preset_config("mixtral-8x22b", "tiny"), AdamW(), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"Mamba.*ROADMAP A\.11"):
-        tlaunch.main(["--device", "cpu", "--steps", "1"])  # the default arch, mamba2-130m
     with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
         tlaunch.main(["--device", "cpu", "--arch", "gemma3-4b", "--pipeline-stages", "2"])
 
