@@ -6,16 +6,19 @@ Unbiasedness of x_hat = (beta/n) (T(S) + eps)^-1 sum_i G_i^T G_i x_i needs
 
 over the eigenvalues lambda_j of the nk x nk Gram matrix A A^T. As in the JAX
 package, an *eigenvalue bank* (trials, nk) is simulated once per (n, k, d)
-and beta(rho) is a reduction over it for any rho. The port simulates it with
-its own draws (core.random), on the device it is asked for, batched to bound
-memory, and caches it in memory and on disk under ``.cache/beta_torch/`` at
-the checkout root (or ``$REPRO_TORCH_BETA_CACHE``), never in the JAX
-package's ``.cache/beta``. The JAX bank samples rows with ``permutation``
-and the port with top-k scores: both are uniform k-subsets. ``projection=``
-picks the maps: "srht", "gauss" (N(0, 1/d) entries, core.random.normal) or
-"sparse<nnz>" (SparseProj's very-sparse maps, core.random.sparse_draw, by
-``sparse_eig_bank``); the gauss and sparse banks' files carry the
-projection in their names.
+and beta(rho) is a reduction over it for any rho. The port draws the JAX
+package's maps in its call sequence (``split(key(seed), trials)``, then
+``split(trial_key, n)``, then each client's draw) on core.random's
+threefry, so the bank samples the same maps as JAX's. It simulates on the device it is asked
+for, batched to bound memory, and caches the bank in memory and on disk
+under ``.cache/beta_torch/`` at the checkout root (or
+``$REPRO_TORCH_BETA_CACHE``), never in the JAX package's ``.cache/beta``.
+A bank's file name carries its generator and its projection, so a bank of
+the port's earlier counter hash (cached under a name without a generator)
+is never read for a threefry run. ``projection=`` picks the maps:
+"srht" (rows by permutation, as the JAX bank draws them), "gauss" (N(0,
+1/d) entries, core.random.gauss_map) or "sparse<nnz>" (SparseProj's
+very-sparse maps, core.random.sparse_draw, by ``sparse_eig_bank``).
 
 Closed forms, the fast paths and test oracles of the JAX package:
 rho = 0 (T == 1) gives tr(S) = nk exactly, so beta = d/k (``srht_beta``).
@@ -62,24 +65,22 @@ def _sparse_nnz(projection: str) -> int | None:
 
 
 def _bank_path(n: int, k: int, d: int, trials: int, seed: int, projection: str) -> str:
-    name = f"eigs_n{n}_k{k}_d{d}_t{trials}_s{seed}.npy"
-    # the srht name predates the projection key; keep it, so cached banks stay valid
-    return os.path.join(_CACHE_DIR, f"srht_{name}" if projection == "srht"
-                        else f"{projection}_{name}")
+    return os.path.join(_CACHE_DIR,
+                        f"threefry_{projection}_eigs_n{n}_k{k}_d{d}_t{trials}_s{seed}.npy")
 
 
 def _maps(ck: torch.Tensor, k: int, d: int, projection: str) -> torch.Tensor:
     """ck.shape + (k, d) random maps, one per key."""
     if projection == "srht":
-        draw = prand.srht_draw(ck, d, k)
+        draw = prand.srht_draw(ck, d, k, rows_by="permutation")
         return kops.srht_rows_matrix(draw["signs"], draw["rows"], d)
     nnz = _sparse_nnz(projection)
     if nnz is not None:
         # G = (1/sqrt(nnz)) scatter-add of the signs at the columns (repeats merge)
         draw = prand.sparse_draw(ck, d, k, nnz)
-        g = torch.zeros(ck.shape + (k, d), device=ck.device)
+        g = torch.zeros(draw["cols"].shape[:-2] + (k, d), device=ck.device)
         return g.scatter_add_(-1, draw["cols"], draw["signs"]) * (1.0 / math.sqrt(nnz))
-    return prand.normal(ck, (k, d)) / math.sqrt(d)
+    return prand.gauss_map(ck, k, d)
 
 
 def simulate_bank(n: int, k: int, d: int, trials: int, seed: int = 0,
@@ -88,13 +89,12 @@ def simulate_bank(n: int, k: int, d: int, trials: int, seed: int = 0,
     if projection not in ("srht", "gauss") and _sparse_nnz(projection) is None:
         raise ValueError(f"no eigenvalue bank for projection {projection!r}; have {PROJECTIONS}")
     device = resolve_device(device)
-    tkeys = prand.fold_in(prand.key(seed, device), torch.arange(trials, device=device))
-    ids = torch.arange(n, device=device)
+    tkeys = prand.split(prand.key(seed, device), trials)
     bs = max(1, min(trials, (1 << 24) // (n * k * d)))
     out = []
     for i in range(0, trials, bs):
-        ck = prand.fold_in(tkeys[i:i + bs, None], ids)                 # (b, n)
-        a = _maps(ck, k, d, projection).reshape(ck.shape[0], n * k, d)
+        ck = prand.split(tkeys[i:i + bs], n)                          # b x n keys
+        a = _maps(ck, k, d, projection).reshape(-1, n * k, d)
         gram = a @ a.transpose(-1, -2)
         out.append(torch.linalg.eigvalsh(gram).cpu())
     return torch.cat(out).numpy().astype(np.float32)
@@ -112,7 +112,7 @@ def srht_eig_bank(n: int, k: int, d: int, trials: int | None = None, seed: int =
     if os.path.exists(path):
         eigs = np.load(path)
     else:
-        eigs = simulate_bank(n, k, d, trials, seed, device, projection)
+        eigs = simulate_bank(*ck[:5], device, projection)
         os.makedirs(_CACHE_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp.npy"
         np.save(tmp, eigs)

@@ -360,6 +360,9 @@ class Pipeline:
                       bank=None, device=None):
         """One-shot DME on ``device``: xs (n, C, d) -> (C, d) mean estimate."""
         xs = xs.to(resolve_device(device))
+        if draws is None:  # the clients' maps, made once for the encode and the decode
+            draws = self.sparsifier.round_draws(key, xs.shape[0], xs.shape[1],
+                                                client_ids=client_ids, device=xs.device)
         payloads, _ = self.encode_all(key, xs, client_ids=client_ids, side_info=side_info,
                                       draws=draws)
         return self.decode(key, payloads, xs.shape[0], client_ids=client_ids,

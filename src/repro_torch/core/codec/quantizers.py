@@ -8,12 +8,13 @@ inverts itself on the server and inside ``self_decode``, so error feedback
 sees exactly what the server reconstructs.
 
 ``Int8Quant`` takes a per-chunk max scale and STOCHASTIC rounding, so any
-unbiased sparsifier composed with it stays unbiased. Its dither is a
-uniform of the port's own generator (core.random.uniform) of
-``fold_in(qkey, salt)``, one salt per tensor name; ``CorrelatedQuant``'s is
-one uniform of the ROUND key shared by the cohort, rotated per client. The
-rounding itself is ``stochastic_round``, one plain function, so a test can
-feed it the JAX package's uniforms and hold the int8 values bit for bit.
+unbiased sparsifier composed with it stays unbiased. Its dither is
+``core.random.uniform`` of ``fold_in(qkey, salt)``, one salt per tensor name
+(the JAX package's uniforms);
+``CorrelatedQuant``'s is one uniform of the ROUND key shared by the cohort,
+rotated per client. The rounding itself is ``stochastic_round``, one plain
+function, so a test can feed it the JAX package's uniforms and hold the int8
+values bit for bit.
 """
 from __future__ import annotations
 

@@ -40,6 +40,14 @@ class Sparsifier:
     def encode(self, key, client_id, x_cd, draws=None) -> dict:
         return self.codec.encode(self, key, client_id, x_cd, draws=draws)
 
+    def round_draws(self, key, n, c, client_ids=None, device=None):
+        """The round's maps for ``n`` clients of ``c`` chunks, stacked
+        (leaves (n, 1|C, ...)), to pass as ``draws=`` to both the encode and
+        the decode; None for a codec that draws nothing from the round key
+        or derives its draws where it uses them."""
+        fn = self.codec.draws
+        return None if fn is None else fn(self, key, n, c, client_ids=client_ids, device=device)
+
     def decode(self, key, arrays, n, client_ids=None, chunk_offset=0, draws=None, bank=None):
         """``chunk_offset``: global position of the first chunk in ``arrays``;
         position-keyed draws are re-derived from the global chunk id. ``bank``

@@ -5,8 +5,8 @@ Each codec module registers a ``Codec`` of plain functions under its name;
 the sparsifier configs of ``core.codec`` dispatch through it. The round key
 is shared by clients and server, per-client randomness is
 ``fold_in(key, client_id)`` and per-chunk randomness
-``fold_in(client_key, chunk_id)``, over the port's counter-based keys
-(core.random), so maps are re-derived, never transmitted.
+``fold_in(client_key, chunk_id)``, over the keys of core.random (JAX's
+threefry by default), so maps are re-derived, never transmitted.
 """
 from __future__ import annotations
 
@@ -25,6 +25,10 @@ class Codec:
     # self_decode(spec, key, client_id, arrays) -> (C, d): the client's own
     # reconstruction of what the server received from it
     self_decode: Callable[..., Any] | None = None
+    # draws(spec, key, n, c, client_ids=None, device=None) -> a round's maps
+    # stacked (n, 1|C, ...), for codecs whose encode and decode both derive
+    # them from the round key: made once, they serve both
+    draws: Callable[..., Any] | None = None
 
 
 _REGISTRY: dict[str, Codec] = {}
@@ -54,12 +58,13 @@ def chunk_key(ckey, chunk_id):
 
 def draw_keys(key, client_id, n_chunks: int, device, shared: bool = False,
               chunk_offset: int = 0) -> torch.Tensor:
-    """One client's draw keys: (1,) its client key with shared randomness,
-    else (C,) chunk keys by GLOBAL chunk position (chunk_offset + local
-    index), so a chunk-slice decode re-derives the full decode's draws."""
+    """One client's draw keys, led by (1,): its client key with shared
+    randomness, else (C,) chunk keys by GLOBAL chunk position (chunk_offset
+    + local index), so a chunk-slice decode re-derives the full decode's
+    draws."""
     ckey = client_key(prand.as_key(key, device), client_id)
     if shared:
-        return ckey.reshape(1)
+        return ckey.unsqueeze(0)
     return chunk_key(ckey, chunk_offset + torch.arange(n_chunks, device=device))
 
 

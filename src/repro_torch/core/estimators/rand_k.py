@@ -105,6 +105,14 @@ def _budgeted_scatter(spec, key, vals_flat, ids, orders=None) -> torch.Tensor:
     return torch.stack(out)
 
 
+def round_draws(spec, key, n: int, n_chunks: int, client_ids=None, device=None):
+    """{"rows": (n, 1|C, k)} of every client, for the encode and the decode
+    of one round; None with ``chunk_budgets`` (those draw where they use)."""
+    if spec.chunk_budgets is not None:
+        return None
+    return {"rows": rows_of(spec, key, n, n_chunks, client_ids, device=device)}
+
+
 def _ids(n: int, client_ids) -> list:
     return list(range(n)) if client_ids is None else [int(i) for i in client_ids]
 
@@ -174,5 +182,5 @@ def self_decode(spec, key, client_id, payload, draws=None):
     return (spec.d_block / spec.k) * kref.srht_scatter_ref(vals, idx, spec.d_block)
 
 
-CODEC = base.Codec(encode=encode, decode=decode, self_decode=self_decode)
+CODEC = base.Codec(encode=encode, decode=decode, self_decode=self_decode, draws=round_draws)
 base.register("rand_k", CODEC)

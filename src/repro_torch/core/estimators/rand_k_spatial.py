@@ -48,5 +48,6 @@ def decode(spec, key, payloads, n, client_ids=None, chunk_offset=0, draws=None):
 
 
 # Encoding is Rand-k's, so the unbiased per-client reconstruction is too.
-CODEC = base.Codec(encode=encode, decode=decode, self_decode=rand_k.self_decode)
+CODEC = base.Codec(encode=encode, decode=decode, self_decode=rand_k.self_decode,
+                   draws=rand_k.round_draws)
 base.register("rand_k_spatial", CODEC)

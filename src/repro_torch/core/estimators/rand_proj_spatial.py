@@ -36,11 +36,9 @@ stacked or (1|C, ...) for one client.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
-from ... import resolve_device
+from ... import obs, resolve_device
 from ...kernels import ops as kops
 from ...kernels import ref as kref
 from .. import beta as beta_lib
@@ -54,15 +52,15 @@ _CHECK_EVERY = 8    # CG iterations between host checks of "all chunks done"
 
 
 def _client_draw(spec, keys: torch.Tensor) -> dict:
-    """One draw per key: srht {"signs": +(d,), "rows": +(k,)}, subsample
-    {"rows": +(k,)} (Rand-k's draw of the key itself, so Lemma 4.1 holds bit
-    for bit), gauss {"g": +(k, d)}."""
+    """One draw per key, in the JAX package's call sequence: srht {"signs":
+    +(d,), "rows": +(k,)}, subsample {"rows": +(k,)} (Rand-k's draw of the
+    key itself, so Lemma 4.1 holds bit for bit), gauss {"g": +(k, d)}."""
     d, k = spec.d_block, spec.k
     if spec.projection == "srht":
         return prand.srht_draw(keys, d, k)
     if spec.projection == "subsample":
         return {"rows": prand.subset(keys, d, k)}
-    return {"g": prand.normal(keys, (k, d)) / math.sqrt(d)}
+    return {"g": prand.gauss_map(keys, k, d)}
 
 
 def _checked(spec, draws: dict, *leads: tuple) -> dict:
@@ -162,7 +160,12 @@ def _cg_solve(y, rho, eps, iters, step, dot):
     exactly 0; the denominators are guarded so they cannot NaN.
 
     y: (C, d); rho: 0-dim or (C,). -> (x, iterations), the count as the JAX
-    loop reports it (iterations begun while some chunk was not done)."""
+    loop reports it (iterations begun while some chunk was not done).
+
+    While the metrics registry records, the count is one ``kernels/cg_iters``
+    sample a solve. The check that ends the loop reads it in the same
+    transfer as "all done", so no read is added; only a solve that runs out
+    of iterations reads it once more at its end."""
     c0 = 1.0 - rho + eps
     c1 = rho
     ys = dot(y, y)
@@ -171,11 +174,22 @@ def _cg_solve(y, rho, eps, iters, step, dot):
     r, p, rs = y.clone(), y.clone(), ys
     done = ys <= tol2
     it = torch.zeros((), dtype=torch.int32, device=y.device)
+    recording = obs.enabled()
     for n_step in range(iters):
-        if n_step % _CHECK_EVERY == 0 and bool(done.all()):
-            break
+        if n_step % _CHECK_EVERY == 0:
+            if not recording:
+                if bool(done.all()):
+                    break
+            else:
+                all_done, count = torch.stack((done.all().to(torch.int32), it)).tolist()
+                if all_done:
+                    obs.record_cg_iters(count)
+                    break
         it = it + (~done.all()).to(torch.int32)
         step(x, r, p, rs, done, c0, c1, tol2)
+    else:
+        if recording:
+            obs.record_cg_iters(int(it))
     return x, it
 
 
@@ -330,6 +344,7 @@ def _resolve_decode_method(spec) -> str:
 
 def decode(spec, key, payloads, n, client_ids=None, chunk_offset=0, draws=None, bank=None):
     method = _resolve_decode_method(spec)
+    obs.record_decode_route("rand_proj_spatial", method)
     if method == "fused":
         if spec.projection == "gauss":
             raise ValueError('decode_method="fused" needs an SRHT or subsample projection '
@@ -360,5 +375,5 @@ def self_decode(spec, key, client_id, payload, draws=None):
     return scale * torch.einsum("ck,ckd->cd", vals, g)
 
 
-CODEC = base.Codec(encode=encode, decode=decode, self_decode=self_decode)
+CODEC = base.Codec(encode=encode, decode=decode, self_decode=self_decode, draws=_fused_draws)
 base.register("rand_proj_spatial", CODEC)

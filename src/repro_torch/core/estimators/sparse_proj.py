@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from ... import resolve_device
+from ... import obs, resolve_device
 from ...kernels import ops as kops
 from ...kernels import ref as kref
 from .. import beta as beta_lib
@@ -89,6 +89,7 @@ def _beta(spec, n, rho, eps, bank=None):
 
 def decode(spec, key, payloads, n, client_ids=None, chunk_offset=0, draws=None, bank=None):
     """Gram-resolvent decode, matrix-free over the sparse maps. -> (C, d)"""
+    obs.record_decode_route("sparse_proj", "resolvent")
     d, k = spec.d_block, spec.k
     vals = payloads["vals"].float()  # (n, C, k)
     draws = _draws(spec, key, n, vals.shape[1], client_ids, chunk_offset, draws, vals.device)
@@ -120,5 +121,5 @@ def self_decode(spec, key, client_id, payload, draws=None):
                                                               spec.d_block)
 
 
-CODEC = base.Codec(encode=encode, decode=decode, self_decode=self_decode)
+CODEC = base.Codec(encode=encode, decode=decode, self_decode=self_decode, draws=_draws)
 base.register("sparse_proj", CODEC)

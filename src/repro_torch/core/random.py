@@ -1,45 +1,38 @@
-"""Counter-based random draws of the port.
+"""Random draws of the port: jax 0.9.0's threefry, bit for bit.
 
-The server re-derives every client's SRHT map from the round's randomness,
-so nothing but payload values crosses the wire (docs/DESIGN.md §3.6). The
-JAX package derives it with threefry ``fold_in`` / ``split`` and draws with
-``rademacher`` and ``top_k(bits)`` (core/estimators/base.py,
-rand_proj_spatial.py::_client_draw). This module keeps the same structure
-with its own generator, not bitwise equal to threefry:
+The server re-derives every client's map from the round's randomness, so
+nothing but payload values crosses the wire (docs/DESIGN.md §3.6). The
+generator is jax 0.9.0's threefry2x32 with
+``jax_threefry_partitionable=True`` (jax/_src/prng.py, jax/_src/random.py),
+on int64 tensors holding uint32 words, so every draw equals jax.random's
+bit for bit on the CPU and on the card:
 
-- a key is an int64 tensor holding a 31-bit word;
-- ``fold_in(key, data)`` hashes a key with a non-negative integer (a client
-  id, a chunk id, a coordinate) into a new key;
-- every hash step works on 31-bit words, so every intermediate product stays
-  below 2**62 and nothing relies on signed overflow. The bits are therefore
-  the same on the CPU and on the card, and the kernel path on the card sees
-  the maps that the plain path on the CPU sees.
+- a key is a (..., 2) int64 tensor, JAX's ``key_data``; ``key(seed)`` is
+  ``(seed >> 32, seed & 0xFFFFFFFF)``;
+- ``fold_in(key, i)`` is ``threefry2x32(key, (0, i))``, so it equals
+  ``split(key, n)[i]``; ``bits(key, shape)`` hashes each flat index i of
+  the shape as ``(i >> 32, i & 0xFFFFFFFF)`` and xors the two output words;
+- ``uniform`` puts a word's top 23 bits under the exponent of 1.0 and
+  subtracts 1; ``bernoulli`` is ``uniform < p``; ``rademacher`` is
+  ``2 bernoulli(0.5) - 1``; ``randint`` is JAX's two-draw arithmetic in
+  uint32; ``permutation`` is JAX's ``_shuffle``, rounds of stable sorts by
+  ``bits`` keys; ``top_k_bits`` is ``lax.top_k`` over ``bits``, lower
+  index first on ties;
+- ``normal`` is ``sqrt(2) erfinv(u)`` over ``uniform(nextafter(-1, 0),
+  1)``, with XLA's float32 erfinv polynomial written in torch ops. It is
+  the one draw that is not bitwise: torch's ``log1p`` is not XLA's, and the
+  gap stays within a few float32 ulp (tests/test_torch_threefry.py);
+- the estimator draws follow the JAX package's call sequences
+  (core/estimators/*.py there): ``srht_draw`` splits the key in two, its
+  signs ``rademacher(k1, (d,))``, its rows ``top_k_bits(k2, d, k)`` (the
+  eigenvalue bank's: ``permutation(k2, d)[:k]``); ``subset`` is
+  ``permutation(key, d)[:k]``; ``sparse_draw`` is ``randint(k2)`` columns
+  and ``rademacher(k1)`` signs; ``gauss_map`` is ``normal(k1, (k, d)) /
+  sqrt(d)``.
 
-Draws have the laws of the JAX package's. Each comes from its own stream of
-a key, a 31-bit word hashed per element with ``fold_in``:
-
-- ``subset``: a uniform k-subset of distinct coordinates, the top-k of
-  ``fold_in(key, j) * d + j`` over the coordinates j, from the key itself
-  (no stream fold; the score's ``+ j`` breaks ties, so the selection is the
-  same on every device), in descending score order. With k = d it is a
-  uniform order of all d coordinates, and its prefixes are uniform subsets.
-  Rand-k's indices, the subsample projection's rows and induced's random
-  part are this draw;
-- ``srht_draw``: the SRHT map. Its signs are Rademacher, bit 15 of stream 0
-  (``fold_in(fold_in(key, 0), j)``); its rows are ``subset`` of stream 1
-  (``fold_in(key, 1)``);
-- ``normal``: standard normals by Box-Muller from streams 2 and 3;
-- ``uniform``: uniforms on [0, 1) from stream 4 (wangni's Bernoulli draws;
-  the int8 quantizers' rounding dither, from ``fold_in(qkey, salt)``);
-- ``randint``: integers uniform on [0, hi), drawn with replacement, from
-  stream 5: ``(word * hi) >> 31`` of each 31-bit word, exactly uniform
-  when hi is a power of two (within hi / 2**31 otherwise);
-- ``rademacher``: float32 +-1, bit 15 of each word of stream 6;
-- ``sparse_draw``: the very-sparse projection's map, its columns
-  ``randint`` and its signs ``rademacher`` of the key, (k, nnz) each.
-
-A uniform takes the top 24 bits of its 31-bit word, times 2**-24: exact in
-float32 and strictly below 1, so ``uniform < p`` holds whenever p = 1.
+Every word is drawn in tiles (``_TILE`` words on the card, ``_CPU_TILE`` on
+the CPU), so the hash's int64 temporaries stay small however large the
+draw.
 """
 from __future__ import annotations
 
@@ -48,108 +41,266 @@ import math
 import numpy as np
 import torch
 
-M31 = 0x7FFFFFFF
-_MUL_MIX = 0x45D9F3B      # < 2**27: a 31-bit word times it stays below 2**58
-_MUL_FOLD = 0x01000193    # < 2**25: a 31-bit word times it stays below 2**56
-_SIGNS, _ROWS, _NORMAL_R, _NORMAL_THETA, _UNIFORM, _RANDINT, _RADEMACHER = range(7)  # streams
+
+def _size(shape) -> int:
+    return int(np.prod(shape, dtype=np.int64))
 
 
-def _mix(h: torch.Tensor) -> torch.Tensor:
-    """Bijective avalanche of 31-bit words held in int64."""
-    h = ((h >> 16) ^ h) * _MUL_MIX & M31
-    h = ((h >> 16) ^ h) * _MUL_MIX & M31
-    return (h >> 16) ^ h
+M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+# words a tile of a draw: on the card each int64 temporary <= 128 MiB; on the
+# CPU 256 KiB, so that the hash's live temporaries (three a tile) stay in a
+# core's L2 through its 160 passes (on one thread 13 % faster than 2**14,
+# within 4 % of 2**16). The CPU tile is also torch's parallel grain, so each
+# op of a draw runs on one thread: with 2**16 the port's draw-heavy test
+# files took 99 s against 68 s under six pytest workers on 8 cores, their
+# threads oversubscribing the cores
+_TILE = 1 << 24
+_CPU_TILE = 1 << 15
+
+
+def threefry2x32(k0, k1, x0, x1) -> tuple:
+    """Threefry-2x32, 20 rounds, of counts (x0, x1) under key (k0, k1): int64
+    tensors of uint32 words that broadcast together. -> (y0, y1)."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    shape = torch.broadcast_shapes(k0.shape, k1.shape, x0.shape, x1.shape)
+    a = ((x0 + ks[0]) & M32).expand(shape).contiguous()
+    b = ((x1 + ks[1]) & M32).expand(shape).contiguous()
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            a.add_(b).bitwise_and_(M32)
+            t = b >> (32 - r)
+            b.bitwise_left_shift_(r).bitwise_and_(M32).bitwise_or_(t).bitwise_xor_(a)
+        a.add_(ks[(i + 1) % 3]).bitwise_and_(M32)
+        b.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(M32)
+    return a, b
+
+
+def _tf_key(seed: int, device) -> torch.Tensor:
+    seed = int(seed)
+    if not -(1 << 31) <= seed < 1 << 63:
+        raise ValueError(f"seed must be in [-2**31, 2**63), got {seed}")
+    hi = seed >> 32 if seed >= 0 else 0  # a negative seed is JAX's int32 one
+    return torch.tensor([hi, seed & M32], dtype=torch.int64, device=device)
+
+
+def _tf_fold_in(keys: torch.Tensor, data) -> torch.Tensor:
+    data = torch.as_tensor(data, dtype=torch.int64, device=keys.device) & M32
+    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(data), data)
+    return torch.stack((y0, y1), -1)
+
+
+def _tf_block(keys: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """(b, hi - lo) words of keys (b, 2) at flat indices lo..hi-1."""
+    idx = torch.arange(lo, hi, dtype=torch.int64, device=keys.device)
+    y0, y1 = threefry2x32(keys[:, :1], keys[:, 1:], idx >> 32, idx & M32)
+    return y0.bitwise_xor_(y1)
+
+
+def _tf_map(keys: torch.Tensor, shape: tuple, fn, dtype, width: int | None = None):
+    """keys.shape[:-1] + shape (or + (width,)) of ``fn(words)``, computed a
+    tile of at most ``_TILE`` (on the CPU ``_CPU_TILE``) words at a time.
+    With ``width``, fn maps whole rows of ``shape``'s words (b, m) to (b,
+    width)."""
+    m = _size(shape)
+    flat = keys.reshape(-1, 2)
+    n = flat.shape[0]
+    out = torch.empty((n, m if width is None else width), dtype=dtype, device=keys.device)
+    tile = _TILE if keys.is_cuda else _CPU_TILE
+    rows = max(1, tile // max(m, 1))
+    cols = m if width is not None else min(m, tile)
+    for r in range(0, n, rows):
+        for c in range(0, max(m, 1), max(cols, 1)):
+            hi = min(m, c + cols)
+            words = _tf_block(flat[r:r + rows], c, hi)
+            if width is None:
+                out[r:r + rows, c:hi] = fn(words)
+            else:
+                out[r:r + rows] = fn(words)
+    tail = tuple(shape) if width is None else (width,)
+    return out.reshape(keys.shape[:-1] + tail)
+
+
+def _unit_f32(words: torch.Tensor) -> torch.Tensor:
+    """JAX's float32 uniform on [0, 1): the top 23 bits under 1.0's exponent, minus 1."""
+    return ((words >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
+# XLA's float32 erfinv (Giles, "Approximating the erfinv function"): degree-9
+# polynomials in w = -log1p(-x^2) - 2.5 (w < 5) or sqrt(w) - 3 (w >= 5)
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                 0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                 0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_NORMAL_SPAN = float(np.float32(1.0) - np.float32(_NORMAL_LO))  # rounds to 2.0, as in JAX
+_SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
+
+
+def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 erfinv polynomial. XLA contracts each Horner step
+    ``c + p * w`` into a fused multiply-add; the step runs in float64 here
+    (p * w exact there) and rounds once to float32, as the FMA does."""
+    w = -torch.log1p(x * -x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+    p = torch.where(small, _ERFINV_SMALL[0], _ERFINV_LARGE[0])
+    for cs, cl in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
+        c = torch.where(small, np.float32(cs).item(), np.float32(cl).item())
+        p = (c.double() + p.double() * w).float()
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def _normal_f32(words: torch.Tensor) -> torch.Tensor:
+    u = torch.clamp_min(_unit_f32(words) * _NORMAL_SPAN + _NORMAL_LO, _NORMAL_LO)
+    return _erfinv_f32(u) * _SQRT2_F32
+
+
+def bits(keys: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """keys.shape[:-1] + shape uint32 words (int64), ``jax.random.bits``."""
+    return _tf_map(keys, shape, lambda w: w, torch.int64)
+
+
+def _score_rows(words: torch.Tensor) -> torch.Tensor:
+    """Distinct int64 scores of rows of words: word * m + position, so that
+    sorting them ascending is the stable sort by word."""
+    m = words.shape[-1]
+    return words * m + torch.arange(m, device=words.device)
+
+
+def top_k_bits(keys: torch.Tensor, d: int, k: int) -> torch.Tensor:
+    """keys.shape[:-1] + (k,) int64: ``lax.top_k(bits(key, (d,)), k)``'s
+    indices, largest word first, the lower index first among equal words."""
+    if not 1 <= k <= d:
+        raise ValueError(f"need 1 <= k <= d, got k={k}, d={d}")
+
+    def rows(words):  # larger word first; among equal words the lower index
+        return torch.topk(words * d + (d - 1 - torch.arange(d, device=words.device)), k,
+                          dim=-1, sorted=True).indices
+    return _tf_map(keys, (d,), rows, torch.int64, width=k)
+
+
+def _shuffle_rounds(n: int) -> int:
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+
+
+def permutation(keys: torch.Tensor, n: int, prefix: int | None = None) -> torch.Tensor:
+    """keys.shape[:-1] + (n,) int64, ``jax.random.permutation(key, n)``:
+    rounds of stable sorts of arange(n) by fresh ``bits``; ``prefix`` keeps
+    its first entries (the last round then takes a top-k, not a sort)."""
+    width = n if prefix is None else prefix
+    rounds = _shuffle_rounds(n)
+    x = torch.arange(n, device=keys.device).expand(keys.shape[:-1] + (n,))
+    for i in range(rounds):
+        pair = split(keys)
+        keys, sub = pair[..., 0, :], pair[..., 1, :]
+        last = i == rounds - 1
+        k = width if last else n
+        order = _tf_map(sub, (n,), lambda w: torch.topk(_score_rows(w), k, dim=-1,
+                                                         largest=False, sorted=True).indices,
+                        torch.int64, width=k)
+        x = torch.gather(x, -1, order)
+    return x[..., :width]
+
+
+def _tf_randint(keys: torch.Tensor, shape: tuple, lo: int, hi: int) -> torch.Tensor:
+    """JAX's randint in int32: two words a value, reduced mod the span in uint32."""
+    if not (-(1 << 31) <= lo and hi <= (1 << 31) - 1):
+        raise ValueError(f"randint's range must lie in int32, got [{lo}, {hi})")
+    pair = split(keys)
+    higher = bits(pair[..., 0, :], shape)
+    lower = bits(pair[..., 1, :], shape)
+    span = hi - lo if hi > lo else 1
+    mult = (1 << 16) % span
+    mult = (mult * mult) % span
+    off = (((higher % span) * mult & M32) + lower % span) & M32
+    return lo + off % span
 
 
 def key(seed: int, device=None) -> torch.Tensor:
-    """Round key (0-dim int64 tensor) from a Python integer seed."""
-    seed = int(seed)
-    if seed < 0:
-        raise ValueError(f"seed must be non-negative, got {seed}")
-    lo = torch.tensor(seed & M31, dtype=torch.int64, device=device)
-    return fold_in(_mix(lo), (seed >> 31) & M31)
+    """Round key (2,) from a Python integer seed."""
+    return _tf_key(seed, device)
 
 
 def as_key(k, device) -> torch.Tensor:
     """A Python int seed or a key tensor, as a key on ``device``."""
     if isinstance(k, torch.Tensor):
-        if k.dtype != torch.int64:
-            raise ValueError(f"a key tensor must be int64, got {k.dtype}")
+        if k.dtype != torch.int64 or k.dim() == 0 or k.shape[-1] != 2:
+            raise ValueError(f"a key is an int64 tensor of shape (..., 2), got "
+                             f"{k.dtype} {tuple(k.shape)}")
         return k.to(device)
     return key(k, device)
 
 
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     """New key(s) from key(s) ``k`` and non-negative integer(s) ``data``
-    below 2**31; k and data broadcast."""
-    data = torch.as_tensor(data, dtype=torch.int64, device=k.device)
-    return _mix((k * _MUL_FOLD + data) & M31)
+    below 2**32; the keys' batch shape and data broadcast."""
+    return _tf_fold_in(k, data)
 
 
-def _words(keys: torch.Tensor, m: int) -> torch.Tensor:
-    """keys.shape + (m,) words: element j is ``fold_in(key, j)``."""
-    return fold_in(keys[..., None], torch.arange(m, dtype=torch.int64, device=keys.device))
-
-
-def subset(keys: torch.Tensor, d: int, k: int) -> torch.Tensor:
-    """One uniform k-subset of range(d) per key: keys.shape + (k,) int64,
-    distinct, in descending score order."""
-    if not 1 <= k <= d:
-        raise ValueError(f"need 1 <= k <= d, got k={k}, d={d}")
-    score = _words(keys, d) * d + torch.arange(d, dtype=torch.int64, device=keys.device)
-    return torch.topk(score, k, dim=-1, sorted=True).indices
-
-
-def srht_draw(keys: torch.Tensor, d: int, k: int) -> dict:
-    """One SRHT draw per key: {"signs": keys.shape + (d,) float32 +-1,
-    "rows": keys.shape + (k,) int64, distinct, in descending score order}."""
-    rows = subset(fold_in(keys, _ROWS), d, k)
-    sbits = _words(fold_in(keys, _SIGNS), d)
-    signs = (1 - 2 * ((sbits >> 15) & 1)).to(torch.float32)
-    return {"signs": signs, "rows": rows}
-
-
-def _unit(words: torch.Tensor) -> torch.Tensor:
-    """31-bit words -> float64 uniforms on [0, 1), multiples of 2**-24."""
-    return (words >> 7).to(torch.float64) * 2.0**-24
+def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``num`` new keys of each key: batch shape + (num,), then the key."""
+    return _tf_fold_in(k[..., None, :], torch.arange(num, device=k.device))
 
 
 def uniform(keys: torch.Tensor, shape: tuple) -> torch.Tensor:
-    """keys.shape + shape float32 uniforms on [0, 1), from stream 4."""
-    m = int(np.prod(shape, dtype=np.int64))
-    u = _unit(_words(fold_in(keys, _UNIFORM), m))
-    return u.to(torch.float32).reshape(keys.shape + tuple(shape))
+    """Batch shape + shape float32 uniforms on [0, 1)."""
+    return _tf_map(keys, shape, _unit_f32, torch.float32)
 
 
-def randint(keys: torch.Tensor, shape: tuple, hi: int) -> torch.Tensor:
-    """keys.shape + shape int64 integers uniform on [0, hi), with
-    replacement, from stream 5; 1 <= hi <= 2**31."""
-    if not 1 <= hi <= 1 << 31:
-        raise ValueError(f"need 1 <= hi <= 2**31, got {hi}")
-    m = int(np.prod(shape, dtype=np.int64))
-    words = _words(fold_in(keys, _RANDINT), m)
-    return ((words * hi) >> 31).reshape(keys.shape + tuple(shape))
+def bernoulli(keys: torch.Tensor, p, shape: tuple) -> torch.Tensor:
+    """Batch shape + shape bool, True with probability p (float32)."""
+    return uniform(keys, shape) < p
 
 
 def rademacher(keys: torch.Tensor, shape: tuple) -> torch.Tensor:
-    """keys.shape + shape float32 +-1 with equal odds, bit 15 of stream 6."""
-    m = int(np.prod(shape, dtype=np.int64))
-    bits = (_words(fold_in(keys, _RADEMACHER), m) >> 15) & 1
-    return (1 - 2 * bits).to(torch.float32).reshape(keys.shape + tuple(shape))
+    """Batch shape + shape float32 +-1 with equal odds."""
+    # uniform < 0.5 exactly when the word's top bit is clear
+    return _tf_map(keys, shape, lambda w: torch.where(w < 1 << 31, 1.0, -1.0), torch.float32)
 
 
-def sparse_draw(keys: torch.Tensor, d: int, k: int, nnz: int) -> dict:
-    """One very-sparse projection map per key: {"signs": keys.shape + (k,
-    nnz) float32 +-1, "cols": keys.shape + (k, nnz) int64 columns in
-    [0, d), drawn with replacement, so they may repeat within a row}."""
-    return {"signs": rademacher(keys, (k, nnz)), "cols": randint(keys, (k, nnz), d)}
+def randint(keys: torch.Tensor, shape: tuple, lo: int, hi: int) -> torch.Tensor:
+    """Batch shape + shape int64 integers uniform on [lo, hi), with
+    replacement."""
+    return _tf_randint(keys, shape, lo, hi)
 
 
 def normal(keys: torch.Tensor, shape: tuple) -> torch.Tensor:
-    """keys.shape + shape float32 standard normals: Box-Muller
-    sqrt(-2 ln u1) cos(2 pi u2) in float64, u1 = 1 - uniform of stream 2
-    (in (0, 1]), u2 a uniform of stream 3."""
-    m = int(np.prod(shape, dtype=np.int64))
-    radius = torch.sqrt(-2.0 * torch.log1p(-_unit(_words(fold_in(keys, _NORMAL_R), m))))
-    theta = (2.0 * math.pi) * _unit(_words(fold_in(keys, _NORMAL_THETA), m))
-    return (radius * torch.cos(theta)).to(torch.float32).reshape(keys.shape + tuple(shape))
+    """Batch shape + shape float32 standard normals."""
+    return _tf_map(keys, shape, _normal_f32, torch.float32)
+
+
+def subset(keys: torch.Tensor, d: int, k: int) -> torch.Tensor:
+    """One uniform k-subset of range(d) per key: batch shape + (k,) int64,
+    distinct; with k = d a uniform order of all d, whose prefixes are
+    uniform subsets. Rand-k's indices, the subsample projection's rows and
+    induced's random part."""
+    if not 1 <= k <= d:
+        raise ValueError(f"need 1 <= k <= d, got k={k}, d={d}")
+    return permutation(keys, d, prefix=k)
+
+
+def srht_draw(keys: torch.Tensor, d: int, k: int, rows_by: str = "top_k") -> dict:
+    """One SRHT draw per key: {"signs": batch + (d,) float32 +-1, "rows":
+    batch + (k,) int64, distinct}: rows by ``top_k_bits`` (the estimator's)
+    or, with ``rows_by="permutation"``, the permutation's prefix (the
+    eigenvalue bank's)."""
+    pair = split(keys)
+    k1, k2 = pair[..., 0, :], pair[..., 1, :]
+    rows = top_k_bits(k2, d, k) if rows_by == "top_k" else permutation(k2, d, prefix=k)
+    return {"signs": rademacher(k1, (d,)), "rows": rows}
+
+
+def sparse_draw(keys: torch.Tensor, d: int, k: int, nnz: int) -> dict:
+    """One very-sparse projection map per key: {"signs": batch + (k, nnz)
+    float32 +-1, "cols": batch + (k, nnz) int64 columns in [0, d), drawn
+    with replacement, so they may repeat within a row}."""
+    pair = split(keys)
+    return {"signs": rademacher(pair[..., 0, :], (k, nnz)),
+            "cols": randint(pair[..., 1, :], (k, nnz), 0, d)}
+
+
+def gauss_map(keys: torch.Tensor, k: int, d: int) -> torch.Tensor:
+    """One dense Gaussian map per key: batch + (k, d) float32, entries N(0, 1/d)."""
+    return normal(split(keys)[..., 0, :], (k, d)) / math.sqrt(d)

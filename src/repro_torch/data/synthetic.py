@@ -11,9 +11,11 @@ duplication (checkpointing only stores the step counter). Non-IID mode
 folds a share of each client's tokens into its own vocab band, so the
 clients' token marginals, and their gradients, drift apart.
 
-The draws are the port's own counter hash (``core.random``), not JAX's
-threefry (ROADMAP A.5): the same laws, other bits. A batch is drawn on the
-device it is asked for, with the same bits on every device.
+The draws are core.random's, in the JAX package's call sequence (``split``
+of the client key in three, ``randint`` and ``bernoulli``), so a batch
+equals the JAX package's bit for bit.
+A batch is drawn on the device it is asked for, with the same bits on every
+device.
 """
 from __future__ import annotations
 
@@ -23,9 +25,6 @@ import torch
 
 from .. import resolve_device
 from ..core import random as prand
-
-# sub-streams of a client key: the walk's start, its strides, the noise, the pick
-_BASE, _STRIDES, _NOISE, _PICK = 1, 2, 3, 7
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,11 +40,12 @@ class SyntheticLM:
     def _tokens(self, key: torch.Tensor, shape: tuple) -> torch.Tensor:
         """Markov-ish stream: a stride walk with 15 % uniform noise."""
         v = self.vocab_size
-        base = prand.randint(prand.fold_in(key, _BASE), shape[:-1] + (1,), v)
-        steps = 1 + prand.randint(prand.fold_in(key, _STRIDES), shape, 16)
+        k1, k2, k3 = prand.split(key, 3)
+        base = prand.randint(k1, shape[:-1] + (1,), 0, v)
+        steps = prand.randint(k2, shape, 1, 17)  # a deterministic stride walk
         walk = (base + torch.cumsum(steps, dim=-1)) % v
-        noise = prand.randint(prand.fold_in(key, _NOISE), shape, v)
-        pick = prand.uniform(prand.fold_in(key, _PICK), shape) < 0.15
+        noise = prand.randint(k3, shape, 0, v)
+        pick = prand.bernoulli(prand.fold_in(key, 7), 0.15, shape)
         return torch.where(pick, noise, walk).to(torch.int32)
 
     def _skew(self, tokens: torch.Tensor, client_id: int) -> torch.Tensor:
@@ -57,7 +57,7 @@ class SyntheticLM:
         band = (client_id * width) % self.vocab_size
         skewed = band + tokens % width
         mix_key = prand.fold_in(prand.key(self.seed ^ 0x5EED, tokens.device), client_id)
-        mix = prand.uniform(mix_key, tuple(tokens.shape)) < self.non_iid
+        mix = prand.bernoulli(mix_key, self.non_iid, tuple(tokens.shape))
         return torch.where(mix, skewed, tokens)
 
     def batch_at(self, step: int, device=None) -> dict:

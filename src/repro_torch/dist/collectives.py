@@ -384,6 +384,8 @@ def compressed_mean_tree(spec, key, tree, shardings=None, ef_chunks=None, partic
         if pipe.has_ef:
             x -= self_dec
     else:
+        if draws is None:  # the clients' maps, made once for the encode and the decode
+            draws = pipe.sparsifier.round_draws(key, n, n_chunks, client_ids=ids, device=dev)
         # host-time spans on the round-phase tracks (attribution only: the
         # byte annotations stay with the fl driver, which owns the ledger)
         with obs.span("dist", "client_encode", track="client_encode", clients=n):

@@ -258,10 +258,14 @@ def _group_local(pipe_g, key, xs_chunks, ids_g, side, mem_snapshot, cstate,
             )
         return dec, cstate, None
     st_g = None if cstate is None else _take_state(cstate, ids_g)
+    # the clients' maps, made once for the encode and the decode
+    draws = pipe_g.sparsifier.round_draws(key, len(ids_g), xs_chunks.shape[1],
+                                          client_ids=ids_g, device=xs_chunks.device)
     with obs.span("fl", "client_encode", track="client_encode",
                   bytes=group_bytes, clients=len(ids_g), k=pipe_g.k):
         payloads, st_new = pipe_g.encode_all(
-            key, _rows(xs_chunks, ids_g), client_ids=ids_g, side_info=side, states=st_g
+            key, _rows(xs_chunks, ids_g), client_ids=ids_g, side_info=side, states=st_g,
+            draws=draws,
         )
     _mark_quantize(pipe_g)
     if st_new is not None:
@@ -275,13 +279,13 @@ def _group_local(pipe_g, key, xs_chunks, ids_g, side, mem_snapshot, cstate,
                   clients=len(ids_g), sharded=plan is not None):
         if plan is not None:
             dec = collectives.sharded_decode(
-                pipe_g, key, payloads, len(ids_g), plan, client_ids=ids_g
+                pipe_g, key, payloads, len(ids_g), plan, client_ids=ids_g, draws=draws
             )
             if dec_side is not None:
                 dec = dec + dec_side
         else:
             dec = pipe_g.decode(
-                key, payloads, len(ids_g), client_ids=ids_g, side_info=dec_side
+                key, payloads, len(ids_g), client_ids=ids_g, side_info=dec_side, draws=draws
             )
     return dec, cstate, payloads
 

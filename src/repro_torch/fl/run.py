@@ -21,14 +21,19 @@
     # the same on the CPU, with the kernels' plain versions:
     PYTHONPATH=src python -m repro_torch.fl.run --device cpu --smoke
 
+    # a torch.profiler trace of the run (kernels, device time) into DIR, and
+    # the metrics snapshot with the kernel telemetry (kernels/dispatch,
+    # kernels/decode_route, kernels/cg_iters):
+    PYTHONPATH=src python -m repro_torch.fl.run --task dme --profile-dir DIR \
+        --metrics-json metrics.json
+
 Runs on the card unless ``--device cpu`` asks for the CPU. Per-round lines
 report the task metric, the MSE against the survivors' true mean, the
 cumulative payload-byte ledger, and (async) admitted stale payloads;
 --compare prints an MSE-at-equal-bytes table across the baseline estimator
-family. The mesh backends (``--backend gspmd|shard_map``, ROADMAP A.9),
-hierarchical pods and hosts (``--pods``, ``--hosts`` > 1, ROADMAP A.10) and
-``--profile-dir`` (ROADMAP A.8) are not ported and raise
-NotImplementedError.
+family. The mesh backends (``--backend gspmd|shard_map``, ROADMAP A.9) and
+hierarchical pods and hosts (``--pods``, ``--hosts`` > 1, ROADMAP A.10) are
+not ported and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -149,6 +154,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="coordinator address for --hosts >= 2 (not ported "
                          "yet: ROADMAP A.10)")
     ap.add_argument("--rho", type=float, default=0.9, help="dme/drift correlation")
+    ap.add_argument("--dim", type=int, default=0,
+                    help="dme/drift vector width (0 => 256, or 128 with --smoke)")
     ap.add_argument("--scheme", default="iid", choices=["iid", "band", "dirichlet"],
                     help="non-IID data partition for the §5 tasks")
     ap.add_argument("--alpha", type=float, default=0.3, help="dirichlet alpha")
@@ -170,8 +177,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "run (schema_version 2)")
     ap.add_argument("--profile-dir", dest="profile_dir", default=None,
                     metavar="DIR",
-                    help="wrap the run in a device profile (not ported yet: "
-                         "ROADMAP A.8)")
+                    help="wrap the run in a torch.profiler session and write "
+                         "its Chrome trace (host and device activities) here")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' runs "
                          "the plain versions)")
@@ -182,7 +189,7 @@ def make_task(args, device=None):
     kw: dict = {"n_clients": args.clients, "seed": args.seed, "device": device}
     if args.task in ("dme", "drift"):
         kw["rho"] = args.rho
-        kw["d"] = 128 if args.smoke else 256
+        kw["d"] = args.dim or (128 if args.smoke else 256)
     elif args.task == "power_iteration":
         kw.update(d=256 if args.smoke else 1024,
                   samples=400 if args.smoke else 4000, scheme=args.scheme,
@@ -347,16 +354,13 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "--pods / --hosts > 1 / --coordinator (hierarchical aggregation over runtime/) is "
             "not ported yet (ROADMAP A.10)")
-    if args.profile_dir is not None:
-        raise NotImplementedError(
-            "--profile-dir (a device profile, obs/profile.py) is not ported yet "
-            "(ROADMAP A.8)")
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
-    task = make_task(args, resolve_device(args.device))
+    dev = resolve_device(args.device)
+    task = make_task(args, dev)
 
     tracer = None
     if args.trace or args.metrics_json:
@@ -365,7 +369,7 @@ def main(argv=None) -> int:
         tracer = obs.install_tracer(obs.Tracer())
 
     runs = []
-    with obs.profiler_session(args.profile_dir):
+    with obs.profiler_session(args.profile_dir, dev):
         if args.compare:
             # under --trace the runs share one timeline: events accumulate
             # across estimators and the metadata ledger sums all of them

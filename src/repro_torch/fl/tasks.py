@@ -269,9 +269,9 @@ def drift(n_clients=8, d=256, rho=0.95, omega=0.03, client_bias=0.0,
     decoder that encodes deltas against the server's previous estimate spends
     its k on a vector ~1/omega times smaller: the Rand-k-Temporal argument.
     Fresh per-round client noise keeps the task honest (the delta is never 0).
-    The noise is the port's ``core.random.normal(key, (n, d))`` of the round
-    key, where the JAX package draws ``jax.random.normal``: the same law,
-    other draws (at rho = 1, sigma = 0 and no draw enters the vectors).
+    The noise is ``core.random.normal(key, (n, d)) / sqrt(d)`` of the round
+    key, the JAX package's ``jax.random.normal`` draw (within core.random's
+    few float32 ulp).
 
     ``client_bias`` > 0 adds a PERSISTENT per-client offset b_i (unit vector
     scaled by client_bias): x_i(t) = u(t) + b_i + sigma eps_i(t). Broadcast

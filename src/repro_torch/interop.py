@@ -1,9 +1,10 @@
 """Carry the JAX package's state into the port, through numpy.
 
 The estimator's state is the per-client maps of a round and the eigenvalue
-bank behind beta. The port draws its maps with its own generator
-(core.random), so a comparison with the JAX package carries the JAX draws
-and bank across, as numpy arrays:
+bank behind beta. On core.random's threefry the port draws the JAX
+package's own maps and bank from the same seed; a comparison that holds
+one part alone carries the JAX draws and bank across instead, as numpy
+arrays:
 
 - ``draws_from_numpy`` takes the ``_fused_draws`` layout of
   repro.core.estimators.rand_proj_spatial, one form a projection: srht

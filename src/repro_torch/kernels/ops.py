@@ -21,7 +21,11 @@ the split-TF32 one (csrc/flash_attention.cu).
 The very-sparse projection ops (``sparse_proj_*``) are plain PyTorch on
 every device and take no ``use_kernel``: the JAX package pins them to XLA
 (no Pallas kernel stands behind them), and a gather, a reduce and a
-scatter-add are all they do. On CUDA tensors ``index_add_`` /
+scatter-add are all they do.
+
+Every call counts its route under ``kernels/dispatch{op,route}`` while the
+metrics registry records (``obs.profile.record_dispatch``: ``kernel`` or
+``plain``; the sparse ops always ``plain``). On CUDA tensors ``index_add_`` /
 ``scatter_add_`` add in an unspecified order, so their results are not
 bitwise from run to run there.
 """
@@ -32,6 +36,7 @@ import math
 import numpy as np
 import torch
 
+from ..obs.profile import record_dispatch
 from . import flash_attention as _flash
 from . import fwht as _fwht
 from . import ref as _ref
@@ -40,18 +45,17 @@ from . import srht_fused as _fused
 USE_KERNEL = ("auto", "force", "never")
 
 
-def _use_kernel(t: torch.Tensor, use_kernel: str) -> bool:
+def _use_kernel(op: str, t: torch.Tensor, use_kernel: str) -> bool:
+    """The route of one call of ``op``, counted as ``kernels/dispatch``."""
     if use_kernel not in USE_KERNEL:
         raise ValueError(f"use_kernel must be one of {USE_KERNEL}, got {use_kernel!r}")
-    if use_kernel == "never":
-        return False
-    if t.is_cuda:
-        return True
-    if use_kernel == "force":
+    if use_kernel == "force" and not t.is_cuda:
         raise RuntimeError(
             f"use_kernel='force' needs a CUDA tensor; the CUDA kernels do not run on {t.device}"
         )
-    return False
+    use = use_kernel != "never" and t.is_cuda
+    record_dispatch(op, use)
+    return use
 
 
 def launch_counts() -> dict:
@@ -78,7 +82,7 @@ def fwht(x: torch.Tensor, *, scale: float = 1.0, use_kernel: str = "auto") -> to
     """``scale * H_d @ x`` along the last axis; x: (..., d), f32 or bf16."""
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
-    if _use_kernel(x2, use_kernel):
+    if _use_kernel("fwht", x2, use_kernel):
         out = _fwht.fwht_cuda(x2.contiguous(), scale=scale)
     else:
         out = _fwht_plain(x2, None, scale)
@@ -95,7 +99,7 @@ def srht_encode(x: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, *,
     x2 = x.reshape(-1, d)
     inv = 1.0 / math.sqrt(d)
     rows = rows.long()
-    if _use_kernel(x2, use_kernel):
+    if _use_kernel("srht_encode", x2, use_kernel):
         out = _fwht.fwht_cuda(x2.contiguous(), signs.float().contiguous(), rows.contiguous(),
                               scale=inv)
     else:
@@ -111,7 +115,7 @@ def srht_decode(u: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, d: int
     lead = u.shape[:-1]
     full = _ref.srht_scatter_ref(u.reshape(-1, k), rows, d)
     inv = 1.0 / math.sqrt(d)
-    if _use_kernel(full, use_kernel):
+    if _use_kernel("srht_decode", full, use_kernel):
         out = _fwht.fwht_cuda(full, scale=inv) * signs
     else:
         out = _fwht_plain(full, None, inv) * signs
@@ -130,7 +134,7 @@ def srht_encode_batch(x: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, 
     s2 = torch.broadcast_to(signs, x.shape).reshape(-1, d)
     r2 = torch.broadcast_to(rows.long(), lead + (k,)).reshape(-1, k)
     inv = 1.0 / math.sqrt(d)
-    if _use_kernel(x2, use_kernel):
+    if _use_kernel("srht_encode_batch", x2, use_kernel):
         out = _fused.fwht_rowsigns_cuda(x2.float().contiguous(), s2.float().contiguous(),
                                         r2.contiguous(), sign_pre=True, scale=inv)
     else:
@@ -144,7 +148,7 @@ def srht_decode_sum(z: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, d:
     """Client-summed SRHT adjoint ``y_c = sum_i G_i^T z_ic``.
 
     z: (n, C, k); signs: (n, C|1, d); rows: (n, C|1, k). -> (C, d)"""
-    if _use_kernel(z, use_kernel):
+    if _use_kernel("srht_decode_sum", z, use_kernel):
         return _fused.srht_decode_sum_cuda(
             z.float().contiguous(), signs.float().contiguous(), rows.long().contiguous(), d,
             scale=1.0 / math.sqrt(d),
@@ -162,7 +166,7 @@ def srht_gram_apply(v: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, *,
     """Matrix-free ``S v = sum_i G_i^T G_i v``; v (C, d), signs (n, C|1, d),
     rows (n, C|1, k) the draws' rows. -> (C, d)"""
     d = v.shape[-1]
-    if _use_kernel(v, use_kernel):
+    if _use_kernel("srht_gram_apply", v, use_kernel):
         return _fused.srht_gram_apply_cuda(
             v.float().contiguous(), signs.float().contiguous(), rows.long().contiguous(),
             scale=1.0 / d,
@@ -178,7 +182,7 @@ def srht_cg_step(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor, rs: torch.Te
     c0, c1: 0-dim or (C,) float32; tol2 (C, 1); signs (n, C|1, d), rows
     (n, C|1, k). Chunks already done keep every bit. The kernel runs the
     whole step (S p and every update) in one launch."""
-    if _use_kernel(p, use_kernel):
+    if _use_kernel("srht_cg_step", p, use_kernel):
         _fused.srht_cg_step_cuda(x, r, p, rs, done, c0.float(), c1.float(), tol2,
                                  signs.float().contiguous(), rows.long().contiguous(),
                                  scale=1.0 / p.shape[-1])
@@ -206,7 +210,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, rep: i
     the kernel route raises NotImplementedError on tensors that require
     grad, rather than return a result that autograd cannot reach q, k and v
     through. The plain version stays differentiable."""
-    if _use_kernel(q, use_kernel):
+    if _use_kernel("flash_attention", q, use_kernel):
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
             raise NotImplementedError(
                 "the flash-attention kernels have no backward (ROADMAP A.11): train with "
@@ -259,6 +263,7 @@ def sparse_proj_encode(x: torch.Tensor, signs: torch.Tensor, cols: torch.Tensor)
     ``nnz`` signed entries of magnitude 1/sqrt(nnz) at the drawn columns.
 
     x: (C, d); signs, cols: (1|C, k, nnz). -> (C, k)"""
+    record_dispatch("sparse_proj_encode", False)
     nnz = cols.shape[-1]
     return (_sparse_gather(x, cols) * signs).sum(-1) * (1.0 / math.sqrt(nnz))
 
@@ -270,6 +275,7 @@ def sparse_proj_adjoint(z: torch.Tensor, signs: torch.Tensor, cols: torch.Tensor
 
     z: (C, k) with draws (1|C, k, nnz), or (n, C, k) with (n, 1|C, k, nnz).
     -> (C, d) or (n, C, d)"""
+    record_dispatch("sparse_proj_adjoint", False)
     scale = 1.0 / math.sqrt(cols.shape[-1])
     if z.dim() == 2:
         return _sparse_scatter(z, signs, cols, d) * scale
@@ -284,6 +290,7 @@ def sparse_proj_gram_apply(v: torch.Tensor, signs: torch.Tensor, cols: torch.Ten
     SparseProj decode; the client sum in client order.
 
     v: (C, d); signs, cols: (n, 1|C, k, nnz). -> (C, d)"""
+    record_dispatch("sparse_proj_gram_apply", False)
     d = v.shape[-1]
     acc = None
     for i in range(signs.shape[0]):

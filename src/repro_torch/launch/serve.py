@@ -4,6 +4,10 @@ of prompts, decode N tokens greedily. Runs on the CUDA device unless
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b --preset tiny \\
         --batch 4 --prompt-len 64 --gen 32
+
+``--seed`` gives the JAX package's CLI's weights (``init_params(cfg,
+key(seed))``) and prompts (``key(seed + 1)``), through core.random's
+threefry draws.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import time
 import torch
 
 from .. import configs, resolve_device
+from ..core import random as prand
 from ..models import init_cache, init_params
 from ..train import make_decode_step, make_prefill_step
 
@@ -24,8 +29,9 @@ def _sync(dev: torch.device) -> None:
 
 def serve(cfg, params, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
           device=None) -> dict:
-    """Prefill ``batch`` random prompts of ``prompt_len`` tokens (drawn from
-    ``seed + 1``), then ``gen - 1`` greedy decode steps.
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens (drawn as the
+    JAX package's CLI draws them: ``randint(key(seed + 1), (batch,
+    prompt_len), 0, vocab)``), then ``gen - 1`` greedy decode steps.
 
     -> {"tokens": (batch, gen) int32, the first from the prefill;
     "prefill_logits": (batch, 1, vocab_padded) float32; "prompts";
@@ -34,9 +40,8 @@ def serve(cfg, params, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     cache = init_cache(cfg, batch, prompt_len + gen, device=dev)
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
-    g = torch.Generator(device=dev).manual_seed(seed + 1)
-    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g, device=dev,
-                            dtype=torch.int32)
+    prompts = prand.randint(prand.key(seed + 1, dev), (batch, prompt_len), 0,
+                            cfg.vocab_size).to(torch.int32)
 
     _sync(dev)
     t0 = time.perf_counter()
@@ -75,7 +80,7 @@ def main(argv=None):
     if cfg.input_mode != "tokens":
         raise SystemExit(f"{cfg.name} is an embeddings-input stub; serve tokens archs")
     print(f"[serve] {cfg.name} preset={args.preset}: {cfg.n_params()/1e6:.1f}M params")
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed))
+    params = init_params(cfg, args.seed, device=dev)
     res = serve(cfg, params, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
                 seed=args.seed, device=dev)
     t_prefill, t_decode = res["prefill_s"], res["decode_s"]

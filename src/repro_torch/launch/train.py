@@ -22,8 +22,6 @@ import functools
 import os
 import tempfile
 
-import torch
-
 from .. import configs, resolve_device
 from ..core import codec
 from ..data import SyntheticLM
@@ -93,7 +91,7 @@ def main(argv=None):
         return functools.partial(data.batch_at, device=dev)
 
     def init_state():
-        params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed))
+        params = init_params(cfg, args.seed, device=dev)
         return params, init_train_state(cfg, optimizer, params, dme, args.clients)
 
     plan = FaultPlan(

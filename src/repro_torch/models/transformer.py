@@ -25,6 +25,8 @@ from typing import NamedTuple
 import torch
 import torch.utils.checkpoint
 
+from .. import resolve_device
+from ..core import random as prand
 from . import attention, layers, mamba, moe
 from .common import LayerSpec, ModelConfig
 
@@ -168,8 +170,8 @@ def param_defs(cfg: ModelConfig):
 # --------------------------------------------------------------------- init
 
 
-def _init_leaf(defn: ParamDef, generator: torch.Generator, dtype: torch.dtype) -> torch.Tensor:
-    dev = generator.device
+def _init_leaf(defn: ParamDef, key: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    dev = key.device
     if defn.init == "zeros":
         return torch.zeros(defn.shape, dtype=dtype, device=dev)
     if defn.init == "ones":
@@ -183,15 +185,33 @@ def _init_leaf(defn: ParamDef, generator: torch.Generator, dtype: torch.dtype) -
     scale = defn.scale
     if defn.init == "scaled":
         scale = defn.scale / max(1.0, (2.0 * 24.0) ** 0.5)  # residual-branch damping
-    out = torch.randn(defn.shape, generator=generator, dtype=torch.float32, device=dev)
-    return out.mul_(scale).to(dtype)
+    return prand.normal(key, defn.shape).mul_(scale).to(dtype)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator):
+def _n_defs(tree) -> int:
+    return len(def_leaves(tree))
+
+
+def init_params(cfg: ModelConfig, key, device=None):
     """Random parameters with the JAX package's recipes (normal * scale,
-    damped residual outputs, ones, zeros), drawn from ``generator`` on its
-    device. The draws are torch's, not jax.random's."""
-    return map_defs(lambda d: _init_leaf(d, generator, cfg.params_dtype), param_defs(cfg))
+    damped residual outputs, ones, zeros) from ``key`` (a core.random key or
+    an integer seed) on ``device`` (the key's, or the card when None), as
+    the JAX package draws them: ``split(key, leaves)``, one key a leaf in
+    its tree-flatten order (dict keys sorted), so the weights are the JAX
+    package's within the ``normal`` draw's few float32 ulp."""
+    if device is None and isinstance(key, torch.Tensor):
+        device = key.device
+    defs = param_defs(cfg)
+    keys = iter(prand.split(prand.as_key(key, resolve_device(device)), _n_defs(defs)))
+
+    def build(tree):  # in the order of jax.tree.flatten: dict keys sorted
+        if isinstance(tree, ParamDef):
+            return _init_leaf(tree, next(keys), cfg.params_dtype)
+        if isinstance(tree, dict):
+            return {k: build(tree[k]) for k in sorted(tree)}
+        return tuple(build(v) for v in tree)
+
+    return build(defs)
 
 
 # ------------------------------------------------------------------ forward

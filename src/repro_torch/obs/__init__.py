@@ -1,5 +1,5 @@
-"""repro_torch.obs: metrics registry and round-timeline tracing (port of
-repro/obs).
+"""repro_torch.obs: metrics registry, round-timeline tracing and profiling
+hooks (port of repro/obs).
 
 Everything is OFF by default and the disabled paths are one-flag-check
 no-ops, so a run with recording off is bitwise equal to one with it on
@@ -18,16 +18,20 @@ no-ops, so a run with recording off is bitwise equal to one with it on
   tensor, so none synchronises the stream. Spans are host time.
 - ``trace``: Chrome-trace/Perfetto event collection, one track per round
   phase; ``install_tracer`` makes it the process emission target.
-
-The JAX package's ``profile`` module (the profiler session, and the
-dispatch, decode-route and CG-iteration hooks inside the ops and the
-decode) is ROADMAP A.8: ``profiler_session`` passes through with no
-directory and raises otherwise.
+- ``profile``: ``profiler_session(logdir)``, a ``torch.profiler`` session
+  (device time, kernel names) written as a Chrome trace; and the kernel
+  telemetry that ``kernels.ops`` and the resolvent decodes record
+  (``kernels/dispatch``, ``kernels/decode_route``, ``kernels/cg_iters``).
 """
 from __future__ import annotations
 
-import contextlib
-
+from .profile import (  # noqa: F401
+    profiler_session,
+    record_cg_iters,
+    record_compile,
+    record_decode_route,
+    record_dispatch,
+)
 from .registry import (  # noqa: F401
     count,
     disable,
@@ -49,13 +53,3 @@ from .trace import (  # noqa: F401
     now_us,
     uninstall_tracer,
 )
-
-
-@contextlib.contextmanager
-def profiler_session(logdir: str | None):
-    """A pass-through when ``logdir`` is None; a device profile written to
-    ``logdir`` is not ported yet (ROADMAP A.8 obs/profile.py)."""
-    if logdir is not None:
-        raise NotImplementedError(
-            "a profiler session (--profile-dir) is not ported yet (ROADMAP A.8 obs/profile.py)")
-    yield

@@ -27,8 +27,8 @@ recording call records nothing, and the ``obs/tracer_drops`` counter
 **Spans are host time.** A span reads ``time.perf_counter`` around the
 enclosed Python: on the card that is the time to dispatch the enclosed
 work, not the time the device spends on it, since CUDA launches return
-before the device finishes. Device time by CUDA events or the profiler is
-ROADMAP A.8.
+before the device finishes. Device time is the profiler session's
+(``obs.profile.profiler_session``).
 
 Counters are deterministic: same seed + same config => same counter
 snapshot; durations live in histograms, which are outside that contract.

@@ -9,7 +9,7 @@ Two modes:
     backward (the JAX package vmaps the clients) and copied into stacked
     (n, ...) leaves; the cross-client mean is the paper's estimator via
     ``dist.collectives.compressed_mean_tree`` on the local route, keyed by
-    ``fold_in(key(seed), step)`` of the port's ``core.random``.
+    ``fold_in(key(seed), step)`` of ``core.random``, the JAX package's key.
 
 Error feedback (an ErrorFeedback stage in the pipeline, Top-k-style biased
 codecs): a per-client residual buffer lives in train_state["ef"], added to

@@ -31,7 +31,7 @@ def _inputs(cfg, g: torch.Generator, b: int, s: int) -> torch.Tensor:
 @pytest.fixture(scope="module", params=configs.ARCHS)
 def arch_setup(request):
     cfg = configs.preset_config(request.param, "tiny")
-    return request.param, cfg, init_params(cfg, torch.Generator().manual_seed(0))
+    return request.param, cfg, init_params(cfg, 0, device="cpu")
 
 
 def _pairs(params, defs):

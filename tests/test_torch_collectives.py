@@ -11,7 +11,8 @@ The overlapped stream and the chunk-ownership decode: ``ownership_plan``
 ``intra_pod_traffic`` equal JAX's exactly; ``sharded_decode`` and
 ``streamed_mean`` on JAX's shared draws (and bank) agree with JAX's within
 1e-5 and are bitwise equal to the port's own synchronous decode; the
-refusals keep JAX's wording.
+refusals keep JAX's wording. The local route derives a round's maps once
+for its encode, decode and self-decode, with the bits each derives alone.
 """
 from __future__ import annotations
 
@@ -320,3 +321,44 @@ def test_stream_and_ownership_refusals_keep_jax_wording(name):
                 with pytest.raises(ValueError) as ei:
                     tcoll.compressed_mean_tree(spec, 0, tree, device="cpu", **kw)
                 assert str(ei.value) == text
+
+
+SHARED_DRAW_SPECS = {
+    "srht_per_chunk": lambda c: c.RandProjSpatial(k=K, d_block=D_BLOCK, transform="avg",
+                                                  shared_randomness=False),
+    "srht_shared": lambda c: c.RandProjSpatial(k=K, d_block=D_BLOCK, transform="avg"),
+    "rand_k_spatial": lambda c: c.RandKSpatial(k=K, d_block=D_BLOCK, transform="avg",
+                                               shared_randomness=False),
+    "sparse_proj_ef": lambda c: c.Pipeline([c.SparseProj(k=K, d_block=D_BLOCK, s=4,
+                                                         shared_randomness=False),
+                                            c.ErrorFeedback()]),
+}
+
+
+@pytest.mark.parametrize("name", list(SHARED_DRAW_SPECS))
+def test_local_round_makes_its_draws_once(monkeypatch, name):
+    """The local route derives each client's maps once a round and hands
+    them to the encode, the decode and the self-decode; the result is the
+    one each of them gets deriving its own."""
+    from repro_torch.core import random as prand
+
+    spec = SHARED_DRAW_SPECS[name](tcodec)
+    pipe = tcodec.as_pipeline(spec)
+    tree = interop.tree_from_numpy(_tree(3, 3), "cpu")
+    chunks = torch.stack([chunking.flatten_tree({n: v[i] for n, v in tree.items()})[0]
+                          for i in range(3)])
+    c = -(-chunks.shape[1] // D_BLOCK)
+    xs = torch.nn.functional.pad(chunks, (0, c * D_BLOCK - chunks.shape[1])).reshape(3, c, D_BLOCK)
+    payloads, _ = pipe.encode_all(5, xs)
+    want = pipe.decode_payload(5, payloads, 3)
+    drawn = []
+    for fn in ("srht_draw", "sparse_draw", "subset"):
+        def counted(keys, *a, _fn=getattr(prand, fn), **kw):
+            drawn.append(keys.shape[:-1].numel())
+            return _fn(keys, *a, **kw)
+        monkeypatch.setattr(prand, fn, counted)
+    got, _, _ = tcoll.compressed_mean_tree(spec, 5, tree, device="cpu")
+    maps = 3 * (1 if pipe.sparsifier.shared_randomness else c)
+    assert sum(drawn) == maps
+    flat = chunking.flatten_tree(got)[0]
+    assert torch.equal(flat, want.reshape(-1)[:flat.numel()])

@@ -1,7 +1,11 @@
 """The port's observability layer (src/repro_torch/obs): the registry's
 no-op when disabled, its refusal to read tensors, deterministic counters,
 and the round tracer's byte-ledger parity with History, in the JAX
-package's Chrome-trace format (tools/trace_report.py reads it). No JAX.
+package's Chrome-trace format (tools/trace_report.py reads it); the
+profiler session's trace file and ``fl.run --profile-dir``; and the kernel
+telemetry (``kernels/dispatch``, ``kernels/decode_route``,
+``kernels/cg_iters``), held against the JAX package's on one tiny round
+(the one test that imports JAX).
 
 The load-bearing contract is the disabled case: with recording off (the
 default), the instrumented driver computes the same bits as with it on.
@@ -230,12 +234,85 @@ def test_history_round_records():
     assert recs[2]["bytes"] == hist.bytes[2] and recs[3]["mse"] == hist.mse[3]
 
 
-def test_profiler_session_passes_through_or_names_roadmap():
+def test_profiler_session_passes_through_or_names_roadmap(tmp_path):
+    """None passes through and writes nothing; a directory gets one Chrome
+    trace of the block's host activities (the card's too, on a card)."""
     with obs.profiler_session(None):
         pass
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        with obs.profiler_session("prof"):
-            pass
+    with obs.profiler_session(str(tmp_path / "prof"), "cpu"):
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    traces = list((tmp_path / "prof").glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    names = {ev.get("name") for ev in json.loads(traces[0].read_text())["traceEvents"]}
+    assert "aten::mm" in names
+
+
+def test_kernel_telemetry_matches_jax_on_one_round():
+    """One tiny Rand-Proj-Spatial round per draw mode, recorded in both
+    packages (JAX eagerly, as its own telemetry test runs it): the decode
+    route and every CG iteration count equal JAX's (the draws are JAX's);
+    the dispatch labels cover the same ops on the plain route (JAX's
+    ``oracle``). The port counts each call, where JAX counts a traced
+    program once: one encode a client, and one fused CG step a launched
+    iteration (JAX traces its CG's ``srht_gram_apply`` once)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import obs as jobs
+    from repro.core import codec as jcodec
+
+    n, c, k = 4, 3, 8
+    xs = np.random.default_rng(0).standard_normal((n, c, D)).astype(np.float32)
+    # XLA's costly optimisation passes change no float semantics; each op runs once
+    was = jax.config.read("jax_disable_most_optimizations")
+    for shared in (True, False):
+        snaps = []
+        for pkg_obs, pkg_codec, key, x in ((jobs, jcodec, jax.random.key(3), jnp.asarray(xs)),
+                                           (obs, codec, 3, torch.from_numpy(xs))):
+            pkg_obs.reset()
+            pkg_obs.enable()
+            jax.config.update("jax_disable_most_optimizations", True)
+            try:
+                pipe = pkg_codec.Pipeline([pkg_codec.RandProjSpatial(
+                    k=k, d_block=D, transform="avg", shared_randomness=shared)])
+                payloads, _ = pipe.encode_all(key, x)
+                pipe.decode(key, payloads, n)
+                snaps.append(pkg_obs.snapshot())
+            finally:
+                jax.config.update("jax_disable_most_optimizations", was)
+                pkg_obs.disable()
+                pkg_obs.reset()
+        want, got = snaps
+        routes = {name: v for name, v in got["counters"].items() if "decode_route" in name}
+        assert routes == {name: v for name, v in want["counters"].items()
+                          if "decode_route" in name} == {
+            "kernels/decode_route{estimator=rand_proj_spatial,method=fused}": 1.0}
+        cg = got["histograms"]["kernels/cg_iters"]
+        assert cg == want["histograms"]["kernels/cg_iters"] and cg["count"] == 1
+        encode = "srht_encode" if shared else "srht_encode_batch"
+        assert {name: v for name, v in got["counters"].items() if "dispatch" in name} == {
+            f"kernels/dispatch{{op={encode},route=plain}}": float(n),
+            "kernels/dispatch{op=srht_decode_sum,route=plain}": 1.0,
+            "kernels/dispatch{op=srht_cg_step,route=plain}": float(-(-cg["sum"] // 8) * 8)}
+        assert {name for name in want["counters"] if "dispatch" in name} == {
+            f"kernels/dispatch{{op={encode},route=oracle}}",
+            "kernels/dispatch{op=srht_decode_sum,route=oracle}",
+            "kernels/dispatch{op=srht_gram_apply,route=oracle}"}
+
+
+def test_cli_profile_dir_writes_trace_and_telemetry(tmp_path):
+    """``fl.run --profile-dir`` on the CPU: one trace file in the directory,
+    and ``--metrics-json`` with the kernel telemetry of every round."""
+    metrics, prof = tmp_path / "metrics.json", tmp_path / "prof"
+    assert run_cli.main(["--device", "cpu", "--task", "dme", "--clients", "4",
+                         "--rounds", "2", "--k", "8", "--d-block", str(D), "--dim", str(2 * D),
+                         "--profile-dir", str(prof), "--metrics-json", str(metrics)]) == 0
+    assert len(list(prof.glob("*.pt.trace.json"))) == 1
+    snap = json.loads(metrics.read_text())["runs"][0]["metrics"]
+    counters = snap["counters"]
+    assert counters["kernels/decode_route{estimator=rand_proj_spatial,method=fused}"] == 2
+    assert counters["kernels/dispatch{op=srht_encode,route=plain}"] == 8
+    assert snap["histograms"]["kernels/cg_iters"]["count"] == 2
 
 
 # ------------------------------------------- --compare metrics export (CLI)

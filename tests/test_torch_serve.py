@@ -224,7 +224,7 @@ def test_gqa_repeat_kv_changes_nothing(attn_impl):
     """Repeating the kv heads to every query head (a layout knob of the JAX
     package) gives the same logits as grouped attention."""
     cfg = tconfigs.preset_config("gemma3-4b", "tiny").replace(attn_impl=attn_impl)
-    params = ttf.init_params(cfg, torch.Generator().manual_seed(5))
+    params = ttf.init_params(cfg, 5, device="cpu")
     tokens = torch.randint(0, cfg.vocab_size, (2, 20), generator=torch.Generator().manual_seed(6))
     grouped, _ = ttf.forward(params, cfg, tokens)
     repeated, _ = ttf.forward(params, cfg.replace(gqa_repeat_kv=True), tokens)

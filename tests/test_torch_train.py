@@ -253,7 +253,7 @@ def test_flash_kernel_route_refuses_tensors_that_require_grad():
         with torch.no_grad():
             assert ops.flash_attention(q, k, v, rep=1).shape == q.shape
     cfg = tconfigs.preset_config("gemma3-4b", "tiny").replace(attn_impl="flash")
-    params = ttf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    params = ttf.init_params(cfg, 0, device="cuda")
     tokens = torch.randint(0, cfg.vocab_size, (2, 32), device="cuda")
     with pytest.raises(NotImplementedError, match=r"ROADMAP A\.11"):
         make_train_step(cfg, AdamW(), device="cuda")(
@@ -468,7 +468,7 @@ def _mk_supervisor(tmp, n_clients=2, spec=None):
         return functools.partial(data.batch_at, device="cpu")
 
     def init_state():
-        params = ttf.init_params(TINY, torch.Generator().manual_seed(0))
+        params = ttf.init_params(TINY, 0, device="cpu")
         return params, {"opt": SUP_OPT.init(params)}
 
     return Supervisor(
