@@ -62,6 +62,26 @@ result):
    over the first 2,048 chunks of each client's int8 payload and of a top_k
    payload's indices: exact coded size, bitwise round trip, coded over raw;
    (e) every new config on a small tree, card against CPU within 1e-4;
+   then the mesh route of dist/ (``phase_dist``, lines ``dist (a)`` and
+   ``dist (b)``), on the same tree and the first shared round's key: (a)
+   one rank over NCCL in this process (``sharding.make_mesh``), each of
+   ``compressed_mean_tree_shardmap`` sync, with ``ownership=True``, with
+   ``overlap=True`` (tiles of 8,192 chunks) and with both, and
+   ``compressed_mean_tree(shardings=dme_shardings(mesh))``, each bitwise
+   the local route's mean, its counts zeroed just before it and read just
+   after: K1 x 4 and K3 x 1 a decode (16 decodes overlapped), 1-64 CG steps
+   a decode, its wall ms beside the local round's; ``psum_scatter_mean`` on
+   (1, 126,075, 1024) within 1e-5 / 1e-6 of the plain weighted mean; one
+   DME step of mamba2-130m at full width (4 x 4 x 1024) on the mesh, its
+   update bitwise the mesh-less step's; (b) four ranks spawned on the one
+   card, each on cuda:0 with one client of the same tree, over gloo (NCCL
+   refuses two ranks on one card), a join deadline of 240 s: the shard_map
+   route sync and owner-routed, rank 0's mean bitwise the local route's and
+   every rank's equal to rank 0's (SHA-256 of the mean's bytes), the
+   intra-pod columns (the owner route moves 1,646,048,256 bytes against
+   387,302,400: 768 B of remote payload a chunk against 4,096 B of decoded
+   mean), each rank's ``dist/host_staged_bytes`` and wall ms (four
+   processes on one card, not a multi-card time);
    then the federated round driver (``phase_fl``, lines ``fl (a)``-``fl (f)``)
    on the dme task at the same width (4 clients x 129,100,224 values, rho
    0.9, ``codec.build("rand_proj_spatial", k=64, d_block=1024,
@@ -1280,6 +1300,250 @@ def phase_codec(tree: dict, main: dict) -> dict:
     out["e"] = _codec_small(small_tree())
     return out
 
+
+
+# -------------------------------------------------- phase_dist (dist/ mesh)
+
+DIST_RANKS = 4            # (b): ranks on the one card, over gloo, one client each
+DIST_OVERLAP_TILE = 8192  # (a): chunks a tile of the overlapped routes
+DIST_JOIN_S = 240         # (b): the spawned ranks' deadline
+# (b), at 4 ranks of one client: (n - n/s) k 4 = 768 B a chunk against d 4 =
+# 4096 B, so the owner route moves more intra-pod bytes (the model says so)
+DIST_OWNER_BYTES, DIST_ALLGATHER_BYTES = 1_646_048_256, 387_302_400
+DIST_ROUTES = {  # (a): route -> (entry, keyword arguments)
+    "shard_map": ("shard_map", {}),
+    "shard_map_owners": ("shard_map", {"ownership": True}),
+    "shard_map_overlap": ("shard_map", {"overlap": True, "overlap_tile": DIST_OVERLAP_TILE}),
+    "shard_map_owners_overlap": ("shard_map", {"ownership": True, "overlap": True,
+                                               "overlap_tile": DIST_OVERLAP_TILE}),
+    "gspmd": ("gspmd", {}),
+}
+
+
+def _sha256(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _dist_one_rank(tree: dict, smi: str) -> dict:
+    """(a) the mesh routes on one rank over NCCL, in this process, against
+    the local route; psum_scatter_mean; one mesh DME step of mamba2-130m."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives, sharding
+    from repro_torch.kernels import ops
+
+    seed = SHARED_BASELINE_SEED
+    local_ms = []  # a first and a warm call
+    for _ in range(2):
+        local, ms = _timed_round(lambda: collectives.compressed_mean_tree(
+            _spec(True, "auto"), seed, tree, device=DEV))
+        local_ms.append(ms)
+    local_mean = _flat(local[0])
+    local_sha = _sha256(local_mean)
+    del local
+    mesh = sharding.make_mesh((1,), ("pod",), device=DEV)
+    if dist.get_backend() != "nccl":
+        fail(f"(a) the one-rank mesh runs on {dist.get_backend()}, not NCCL")
+    rows, launches = [], {}
+    n_chunks = -(-MAMBA2_130M_PARAMS // D_BLOCK)
+    for route, (entry, kw) in DIST_ROUTES.items():
+        if entry == "shard_map":
+            call = lambda: collectives.compressed_mean_tree_shardmap(  # noqa: E731
+                _spec(True, "auto"), seed, tree, mesh, device=DEV, **kw)
+        else:
+            call = lambda: collectives.compressed_mean_tree(  # noqa: E731
+                _spec(True, "auto"), seed, tree, collectives.dme_shardings(mesh), device=DEV,
+                **kw)
+        first_ms = _timed_round(call)[1]  # the route's first call, then a warm one
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()  # the warm call's window opens here
+        (mean_tree, info, _), route_ms = _timed_round(call)
+        counts = dict(ops.launch_counts())  # ... and closes here
+        decodes = -(-n_chunks // kw["overlap_tile"]) if kw.get("overlap") else 1
+        steps = counts.pop("srht_cg_step", 0)
+        bitwise = bool(torch.equal(_flat(mean_tree), local_mean))
+        del mean_tree
+        rows.append({"route": route, "wall_ms": route_ms, "first_wall_ms": first_ms,
+                     "local_wall_ms": local_ms[1], "local_first_wall_ms": local_ms[0],
+                     "bitwise_local": bitwise, "decodes": decodes,
+                     "launches": {**counts, "srht_cg_step": steps}, "n_shards": info["n_shards"]})
+        log(f"dist (a) [{smi}] " + json.dumps(rows[-1]))
+        if not bitwise:
+            fail(f"(a) {route}: the mean is not the local route's, bitwise")
+        if counts != {"fwht": N_CLIENTS * decodes, "srht_decode_sum": decodes} or \
+                not decodes <= steps <= 64 * decodes:
+            fail(f"(a) {route} launched {rows[-1]['launches']}: not K1 x {N_CLIENTS} and K3 x 1 "
+                 f"a decode ({decodes}) and 1-64 CG steps a decode")
+        for name, n in rows[-1]["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    del local_mean
+    # psum_scatter_mean on (1, C, d_block) against the plain weighted mean
+    g = torch.Generator(device=DEV).manual_seed(5)
+    tiles = torch.randn((1, n_chunks, D_BLOCK), generator=g, device=DEV)
+    got, psum_ms = _timed_round(lambda: collectives.psum_scatter_mean(tiles, [4.0], mesh))
+    want = (4.0 * tiles[0]) / 4.0
+    psum = {"shape": list(tiles.shape), "wall_ms": psum_ms,
+            "max_abs_err": float((got - want).abs().max()),
+            "allclose_rtol1e-5_atol1e-6": bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6))}
+    del tiles, got, want
+    log(f"dist (a) psum_scatter_mean [{smi}] " + json.dumps(psum))
+    if not psum["allclose_rtol1e-5_atol1e-6"]:
+        fail(f"(a) psum_scatter_mean differs from the weighted mean by {psum['max_abs_err']}")
+    step = _dist_train_step(mesh, smi)
+    dist.destroy_process_group()
+    return {"routes": rows, "launches": launches, "psum": psum, "train": step,
+            "local_sha256": local_sha}
+
+
+def _dist_train_step(mesh, smi: str) -> dict:
+    """(a) one DME step of mamba2-130m at full width (4 x 4 x 1024) on the
+    mesh (the shard_map route: each rank its own clients) and without it,
+    from the same state: the updates bitwise."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = configs.preset_config(TRAIN_MAMBA_ARCH, "full")
+    params = init_params(cfg, 0, device=DEV)
+    opt = _train_opt()
+    state = init_train_state(cfg, opt, params, _train_spec(), N_CLIENTS)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_MAMBA_SEQ, batch=TRAIN_BATCH,
+                        n_clients=N_CLIENTS, seed=0).batch_at(0, DEV)
+    out = {}
+    # a warm-up step first, so that both timed steps are warm
+    for name, kw in (("warm_up", {}), ("meshless", {}), ("mesh", {"mesh": mesh})):
+        step_fn = make_train_step(cfg, opt, dme_spec=_train_spec(), device=DEV, **kw)
+        (new_params, _, metrics), ms = _timed_round(lambda: step_fn(params, state, batch, 0))
+        out[name] = (new_params, float(metrics["loss"]), ms)
+    del out["warm_up"]
+    bitwise = all(torch.equal(a, b) for a, b in zip(_leaves(out["meshless"][0]),
+                                                    _leaves(out["mesh"][0])))
+    row = {"params": cfg.n_params(), "tokens": [N_CLIENTS, TRAIN_BATCH, TRAIN_MAMBA_SEQ],
+           "loss": [out["meshless"][1], out["mesh"][1]],
+           "wall_ms": {"meshless": out["meshless"][2], "mesh": out["mesh"][2]},
+           "update_bitwise": bitwise}
+    del out, params, state
+    log(f"dist (a) train step [{smi}] " + json.dumps(row))
+    if not bitwise:
+        fail("(a) the mesh DME step's update is not the mesh-less step's, bitwise")
+    return row
+
+
+def _dist_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """(b) one rank of DIST_RANKS on the card over gloo: its client of the
+    full-width tree through the shard_map route, sync and owner-routed."""
+    import torch.distributed as dist
+
+    from repro_torch import obs
+    from repro_torch.dist import collectives, sharding
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        mesh = sharding.make_mesh((world,), ("pod",), device=DEV)
+        # the same tree on every rank (one seed), cut to this rank's client
+        mine = _take(gradient_tree(), slice(rank, rank + 1))
+        obs.enable()
+        out = {}
+        for route, kw in (("shard_map", {}), ("shard_map_owners", {"ownership": True})):
+            ms = []  # a first call, then a warm one whose staged bytes are counted
+            for _ in range(2):
+                obs.reset()
+                dist.barrier()
+                (mean_tree, info, _), t = _timed_round(
+                    lambda: collectives.compressed_mean_tree_shardmap(
+                        _spec(True, "auto"), SHARED_BASELINE_SEED, mine, mesh, device=DEV,
+                        **kw))
+                ms.append(t)
+            staged = obs.snapshot()["counters"].get("dist/host_staged_bytes", 0)
+            out[route] = {"wall_ms": ms[1], "first_wall_ms": ms[0],
+                          "sha256": _sha256(_flat(mean_tree)),
+                          "host_staged_bytes": int(staged),
+                          **{k: info[k] for k in ("n_shards", "intra_pod_bytes",
+                                                  "intra_pod_bytes_allgather",
+                                                  "intra_pod_bytes_ownership")}}
+            del mean_tree
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_four_ranks(local_sha: str, smi: str) -> dict:
+    """(b) DIST_RANKS processes on the one card over gloo, each on cuda:0
+    with one client: rank 0's mean bitwise the local route's (by SHA-256 of
+    its bytes), every rank's equal to rank 0's, the intra-pod columns the
+    model's. Four processes share one card: not a multi-card time."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_dist_rank, args=(DIST_RANKS, os.path.join(tmp, "store"), tmp),
+                                 nprocs=DIST_RANKS, join=False, start_method="spawn")
+        deadline = t0 + DIST_JOIN_S
+        try:
+            while not ctx.join(timeout=max(1.0, deadline - time.perf_counter())):
+                if time.perf_counter() >= deadline:
+                    fail(f"(b) the {DIST_RANKS} ranks did not finish in {DIST_JOIN_S} s")
+        except mp.ProcessRaisedException as e:
+            fail(f"(b) a rank failed: {e}")
+        except mp.ProcessExitedException as e:
+            fail(f"(b) a rank exited: {e}")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        seconds = time.perf_counter() - t0
+        ranks = []
+        for r in range(DIST_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    out = {"ranks": DIST_RANKS, "backend": "gloo", "device": "cuda:0 (all ranks)",
+           "seconds_with_spawn": seconds}
+    for route in ("shard_map", "shard_map_owners"):
+        rows = [rk[route] for rk in ranks]
+        out[route] = {"bitwise_local": rows[0]["sha256"] == local_sha,
+                      "ranks_equal": all(r["sha256"] == rows[0]["sha256"] for r in rows),
+                      "wall_ms_by_rank_four_processes_one_card": [r["wall_ms"] for r in rows],
+                      "first_wall_ms_by_rank": [r["first_wall_ms"] for r in rows],
+                      "host_staged_bytes_by_rank": [r["host_staged_bytes"] for r in rows],
+                      **{k: rows[0][k] for k in ("n_shards", "intra_pod_bytes",
+                                                 "intra_pod_bytes_allgather",
+                                                 "intra_pod_bytes_ownership")}}
+        log(f"dist (b) {route} [{smi}] " + json.dumps(out[route]))
+        if not out[route]["bitwise_local"]:
+            fail(f"(b) {route}: rank 0's mean is not the local route's, bitwise")
+        if not out[route]["ranks_equal"]:
+            fail(f"(b) {route}: the ranks' means differ")
+        if out[route]["n_shards"] != DIST_RANKS:
+            fail(f"(b) {route}: info says {out[route]['n_shards']} shards")
+        if min(out[route]["host_staged_bytes_by_rank"]) <= 0:
+            fail(f"(b) {route}: gloo's payloads were not staged through the host")
+    own = out["shard_map_owners"]
+    if (own["intra_pod_bytes_ownership"], own["intra_pod_bytes_allgather"]) != \
+            (DIST_OWNER_BYTES, DIST_ALLGATHER_BYTES) or \
+            own["intra_pod_bytes"] != own["intra_pod_bytes_ownership"]:
+        fail(f"(b) the intra-pod columns {own} are not the model's")
+    if not own["intra_pod_bytes_ownership"] > own["intra_pod_bytes_allgather"]:
+        fail("(b) the info does not say the owner route moves more bytes at this configuration")
+    return out
+
+
+def phase_dist(tree: dict, smi: str) -> dict:
+    """The mesh route of dist/ at the estimator's full width: (a) one rank
+    over NCCL in this process, (b) four ranks on the card over gloo."""
+    t0 = time.perf_counter()
+    one = _dist_one_rank(tree, smi)
+    four = _dist_four_ranks(one["local_sha256"], smi)
+    out = {"a": one, "b": four, "seconds": time.perf_counter() - t0}
+    log(f"dist: {out['seconds']:.1f} s")
+    return out
 
 # ----------------------------------------------------------- phase_fl (FL)
 
@@ -3017,6 +3281,7 @@ def main() -> int:
     phase_baselines(tree, main_path)
     phase_codec(tree, main_path)
     del main_path
+    dist_launches = phase_dist(tree, smi)["a"]["launches"]
     phase_fl(smi)
     phase_train(smi)
     phase_profile(tree)
@@ -3031,6 +3296,8 @@ def main() -> int:
     kernels += phase_flash_timing(
         flash_inputs, {**serve_out["launches"], **serve_out["launches_f32_serving"]}, errs)
     kernels.append(phase_flash_timing_d128(moe_serve["launches"], errs))
+    for row in kernels:  # the launches of phase_dist (a)'s five mesh routes
+        row["launches_dist"] = int(dist_launches.get(row["name"], 0))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -34,7 +34,6 @@ import os
 
 import numpy as np
 import torch
-from scipy.stats import binom
 
 from .. import resolve_device
 from ..kernels import ops as kops
@@ -171,6 +170,8 @@ def srht_beta(n: int, k: int, d: int, rho: float, trials: int | None = None, see
 @functools.lru_cache(maxsize=256)
 def rand_k_spatial_beta_weights(n: int, k: int, d: int) -> tuple[float, np.ndarray]:
     """(p, pmf of B ~ Bin(n-1, p)) with p = k/d, in float64."""
+    from scipy.stats import binom  # imported here: scipy.stats takes seconds to import
+
     p = k / d
     return p, binom.pmf(np.arange(n), n - 1, p)
 

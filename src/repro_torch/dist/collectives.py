@@ -31,13 +31,37 @@ shard count. Bit-identical to the whole decode for every
 ``decode_shardable`` pipeline (within float tolerance for the gram
 decode's online R-hat).
 
-The GSPMD ``shardings`` and the shard_map route are ROADMAP A.9 and raise
-NotImplementedError.
+The mesh routes run over ``torch.distributed``, one rank a mesh shard:
+
+- ``compressed_mean_tree(shardings=dme_shardings(mesh))``, the GSPMD route:
+  every rank holds the whole client tree (the global view a GSPMD program
+  sees) and encodes the clients of its share (ceil-split, so any n works);
+  payloads are gathered, and every rank decodes the same mean, replicated
+  or split by owner (``ownership=``).
+- ``compressed_mean_tree_shardmap``, the explicit-collective route: the
+  tree holds THIS rank's ``n_local`` clients (rank r holds clients
+  ``r*n_local ...``), so n = ``n_local * shards``. Payloads cross the wire
+  by an all-gather (payload-sized traffic: the point of the estimator), or,
+  with ``ownership=``, each chunk's payloads go only to its owner by an
+  all-to-all, the owner decodes its slice at its global chunk offset, and
+  one all-gather of the decoded means assembles the mean. EF residual rows
+  never leave their rank.
+
+Both give the local route's mean bitwise: the gathered client stack is in
+global client order, which is the order the decode adds clients in. A
+gloo group has no device path, so its payloads are copied to the host
+before each call and back after, counted as ``dist/host_staged_bytes``;
+an NCCL group passes device tensors. ``psum_scatter_mean`` is the
+cross-pod count-weighted mean on a reduce-scatter.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import obs, resolve_device
 from ..core import chunking
@@ -45,6 +69,60 @@ from ..core.codec import Payload, as_pipeline
 from ..core.codec.payload import arrays_of, meta_of
 from . import sharding as shard_lib
 
+
+
+@dataclasses.dataclass(frozen=True)
+class DmeShardings:
+    """The GSPMD route's placement: the client axis of the chunk and payload
+    stacks lives on the mesh's ``client_axes``."""
+
+    mesh: Any
+    client_axes: tuple
+
+
+def dme_shardings(mesh, client_axes=("pod",)) -> DmeShardings | None:
+    if mesh is None:
+        return None
+    names = shard_lib.mesh_axis_sizes(mesh)
+    axes = tuple(a for a in client_axes if a in names)
+    if not axes:
+        return None
+    return DmeShardings(mesh=mesh, client_axes=axes)
+
+
+def client_shards(mesh, client_axes) -> int:
+    """The extent of ``client_axes`` on ``mesh``: its client shards."""
+    sizes = shard_lib.mesh_axis_sizes(mesh)
+    return int(np.prod([sizes[a] for a in client_axes if a in sizes], dtype=np.int64))
+
+
+
+def client_shard(mesh, client_axes=("pod",)) -> tuple:
+    """(the client axes' shard count, this rank's shard): the rows of the
+    global client axis this rank holds on the shard_map route are
+    ``shard * n_local ...``."""
+    _, n_shards, shard = _client_group(mesh, client_axes)
+    return n_shards, shard
+
+
+def gather_clients(rows: torch.Tensor, mesh, client_axes=("pod",)) -> torch.Tensor:
+    """Every rank's ``rows`` (n_local, ...), stacked in global client order
+    (n_local * shards, ...), on every rank of the client axes."""
+    group, n_shards, _ = _client_group(mesh, client_axes)
+    return _start_gather(group, rows, [rows.shape[0]] * n_shards)()
+
+def _client_group(mesh, client_axes) -> tuple:
+    """(process group, shard count, this rank's shard) of the mesh's client
+    axes: one axis's group, or the group of several flattened in mesh order
+    (shard = the row-major index over them)."""
+    sizes = shard_lib.mesh_axis_sizes(mesh)
+    axes = [a for a in sizes if a in client_axes]
+    if not axes:
+        raise ValueError(f"the mesh {tuple(sizes)} has none of the client axes {client_axes}")
+    live = [a for a in axes if sizes[a] > 1] or axes[:1]
+    group = (mesh.get_group(live[0]) if len(live) == 1
+             else mesh[tuple(live)]._flatten().get_group())
+    return group, client_shards(mesh, axes), dist.get_rank(group)
 
 def _chunk_clients(tree, d_block: int):
     """Per-client flatten + chunk; tree leaves carry a leading client axis n.
@@ -341,6 +419,222 @@ def streamed_mean(pipe, key, x, n, *, client_ids=None, side_info=None, tile: int
     return mean, self_dec
 
 
+
+# ------------------------------------------------------------ the transport
+
+
+def _to_wire(group, t: torch.Tensor) -> torch.Tensor:
+    """``t`` where ``group``'s transport reads it: gloo has no device path,
+    so a card tensor is copied to the host, and the bytes counted."""
+    if t.device.type != "cpu" and dist.get_backend(group) == "gloo":
+        obs.count("dist", "host_staged_bytes", t.numel() * t.element_size())
+        return t.cpu()
+    return t.contiguous()
+
+
+def _from_wire(t: torch.Tensor, device) -> torch.Tensor:
+    if t.device != device:
+        obs.count("dist", "host_staged_bytes", t.numel() * t.element_size())
+        return t.to(device)
+    return t
+
+
+def _start_gather(group, rows: torch.Tensor, counts: list):
+    """Start gathering every rank's rows, rank q giving ``counts[q]`` (padded
+    to the largest for the call) -> finish(): the (sum(counts), ...) stack in
+    rank order, on ``rows``' device."""
+    dev, m = rows.device, max(counts)
+    if rows.shape[0] < m:
+        rows = torch.cat([rows, rows.new_zeros((m - rows.shape[0],) + rows.shape[1:])])
+    send = _to_wire(group, rows)
+    out = send.new_empty((len(counts) * m,) + tuple(send.shape[1:]))
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    work = gather(out, send, group=group, async_op=True)
+
+    def finish():
+        work.wait()
+        got = out if min(counts) == m else torch.cat(
+            [out[q * m:q * m + c] for q, c in enumerate(counts)])
+        return _from_wire(got, dev)
+
+    return finish
+
+
+def _start_route(group, packed: torch.Tensor, widths: list, counts: list, shard: int):
+    """Start routing chunk columns to their owners: ``packed`` (m, sum(widths),
+    B) holds owner q's ``widths[q]`` columns, owner-major -> finish(): this
+    owner's columns from every rank, (sum(counts), widths[shard], B) in rank
+    order. One all_to_all, its splits uneven where the ranks' rows or the
+    owners' widths are."""
+    dev, (m, _, b) = packed.device, packed.shape
+    bounds = np.cumsum([0] + list(widths))
+    send = _to_wire(group, torch.cat(
+        [packed[:, lo:hi].reshape(-1) for lo, hi in zip(bounds[:-1], bounds[1:])]))
+    mine = widths[shard]
+    out_splits = [c * mine * b for c in counts]
+    out = send.new_empty(sum(out_splits))
+    work = dist.all_to_all_single(out, send, out_splits, [m * w * b for w in widths],
+                                  group=group, async_op=True)
+
+    def finish():
+        work.wait()
+        return _from_wire(out, dev).reshape(sum(counts), mine, b)
+
+    return finish
+
+
+def _wire_specs(pipe, n_cols: int, lead: int) -> list:
+    """[(name, dtype, shape after the first ``lead`` dims)] of a stacked
+    payload of ``n_cols`` chunks, from its declared schema (lead 1: a
+    client's arrays; lead 2: a chunk's)."""
+    return [(a.name, getattr(torch, a.dtype), tuple(a.shape[lead - 1:]))
+            for a in pipe.payload_schema(n_cols)]
+
+
+def _pack(arrays: dict, specs: list, lead: int) -> torch.Tensor:
+    """A stacked payload's arrays as one uint8 tensor: each array's bytes
+    after its first ``lead`` dims, side by side in schema order."""
+    parts = []
+    for name, _, rest in specs:
+        v = arrays[name].contiguous()
+        parts.append(v.reshape(tuple(v.shape[:lead]) + (int(np.prod(rest, dtype=np.int64)),))
+                     .view(torch.uint8))
+    return torch.cat(parts, dim=-1)
+
+
+def _unpack(packed: torch.Tensor, specs: list, lead: int) -> dict:
+    out, off = {}, 0
+    for name, dtype, rest in specs:
+        nb = int(np.prod(rest, dtype=np.int64)) * dtype.itemsize
+        out[name] = (packed[..., off:off + nb].contiguous().view(dtype)
+                     .reshape(tuple(packed.shape[:lead]) + rest))
+        off += nb
+    return out
+
+
+def _draws_cols(draws, cols: np.ndarray, lo: int, hi: int):
+    """The stacked draws of chunk columns ``cols`` (contiguous [lo, hi) when
+    ``cols`` is None); a shared draw (lead 1) is kept whole."""
+    if draws is None or cols is None:
+        return _draws_slice(draws, lo, hi)
+    idx = torch.as_tensor(cols)
+    return {name: v if v.shape[1] == 1 else v[:, idx.to(v.device)] for name, v in draws.items()}
+
+
+def _mesh_mean(pipe, key, x, rows: list, group, shard: int, *, dec_ids=None, route=None,
+               plan=None, overlap=False, tile: int = 1, need_self=False, draws=None,
+               bank=None):
+    """The mesh routes' exchange, run by every rank of ``group`` (this one
+    shard ``shard``).
+
+    ``x`` (m, C, d_block): the encode inputs (EF residual added) of this
+    rank's clients, ``rows[shard]``; ``rows``: every rank's client ids, so
+    the gathered stack is the clients in rank order. ``dec_ids``: the ids
+    the decode averages, in the local route's order (None: 0..n-1); the
+    stack is put in that order, the order the decode adds clients in.
+    ``route`` (a ChunkOwnership over the group's ranks): each chunk's
+    payloads go only to its owner, which decodes its slice at its global
+    chunk offset; one gather of the decoded means. Otherwise every rank
+    gathers every payload and decodes the whole grid, owner-partitioned on
+    a logical ``plan`` if given. ``overlap``: stream the chunk axis in tiles
+    of ``tile`` (owner-major columns under ``route``), each tile's transfer
+    in flight while the next one encodes. ``draws`` (stacked, the decode's
+    clients) replace the round's own.
+
+    -> (the mean (C, d_block), the same on every rank; the self-decodes of
+    x's rows (m, C, d_block) when ``need_self``, else None)."""
+    n_chunks, dev = x.shape[1], x.device
+    ids, counts = rows[shard], [len(r) for r in rows]
+    stack_ids = np.concatenate(rows)
+    order = stack_ids if dec_ids is None else np.asarray(dec_ids)
+    n = len(order)
+    where = {int(c): i for i, c in enumerate(order)}
+    perm = None
+    if not np.array_equal(stack_ids, order):
+        at = {int(c): i for i, c in enumerate(stack_ids)}
+        perm = torch.as_tensor([at[int(c)] for c in order], device=dev)
+    if draws is None:  # the clients' maps, made once a round, for every tile
+        draws = pipe.sparsifier.round_draws(key, n, n_chunks, client_ids=dec_ids, device=dev)
+    my_draws = None if draws is None else {
+        name: v[torch.as_tensor([where[int(c)] for c in ids], dtype=torch.long,
+                                device=v.device)] for name, v in draws.items()}
+    lead = 1 if route is None else 2
+    if route is None:
+        tiles = stream_tiles(n_chunks, tile, plan) if overlap else [(0, n_chunks)]
+    else:
+        cpo = route.chunks_per_owner
+        tiles = stream_tiles(cpo, tile) if overlap else [(0, cpo)]
+
+    def columns(t):
+        """(cols | None for the contiguous [lo, hi), widths by owner | None)."""
+        if route is None:
+            return None, None
+        spans = [(lo + t[0], max(lo + t[0], min(lo + t[1], hi))) for lo, hi in route.slices]
+        cols = np.concatenate([np.arange(a, b) for a, b in spans])
+        return (None if np.array_equal(cols, np.arange(n_chunks)) else cols,
+                [b - a for a, b in spans])
+
+    def produce(t):
+        cols, widths = columns(t)
+        lo, hi = (t if route is None else (0, n_chunks))
+        x_t = x[:, lo:hi] if cols is None else x[:, torch.as_tensor(cols, device=dev)]
+        d_t = _draws_cols(my_draws, cols, lo, hi)
+        specs = _wire_specs(pipe, x_t.shape[1], lead)
+        if len(ids):
+            payloads, _ = pipe.encode_all(key, x_t, client_ids=ids, draws=d_t)
+            arrays = payloads.arrays
+        else:  # a rank whose share is empty still takes part in the calls
+            payloads = None
+            arrays = {name: torch.empty((0,) + shape, dtype=dtype, device=dev)
+                      for name, dtype, shape in _wire_specs(pipe, x_t.shape[1], 1)}
+        packed = _pack(arrays, specs, lead)
+        finish = (_start_gather(group, packed, counts) if route is None
+                  else _start_route(group, packed, widths, counts, shard))
+        return payloads, d_t, finish, x_t.shape[1]
+
+    def consume(t, entry):
+        payloads, d_t, finish, n_cols = entry
+        meta = pipe.payload_meta(n_cols)
+        got = _unpack(finish(), _wire_specs(pipe, n_cols, lead), lead)
+        if perm is not None:
+            got = {name: v[perm] for name, v in got.items()}
+        if route is None:
+            stack = Payload(got, meta)
+            if plan is not None and not overlap:
+                mean_t = sharded_decode(pipe, key, stack, n, plan, client_ids=dec_ids,
+                                        draws=draws, bank=bank)
+            else:
+                mean_t = pipe.decode_payload(key, stack, n, client_ids=dec_ids,
+                                             chunk_offset=t[0],
+                                             draws=_draws_slice(draws, *t), bank=bank)
+        else:
+            lo = route.slice_for(shard)[0] + t[0]
+            width = got[next(iter(got))].shape[1]
+            mean_t = x.new_zeros((0, x.shape[2])) if width == 0 else pipe.decode_payload(
+                key, Payload(got, meta), n, client_ids=dec_ids, chunk_offset=lo,
+                draws=_draws_slice(draws, lo, lo + width), bank=bank)
+        self_t = None
+        if need_self:
+            self_t = (torch.stack(list(_self_decode_all(pipe, key, ids, len(ids), payloads,
+                                                        d_t)))
+                      if len(ids) else x.new_zeros((0, n_cols, x.shape[2])))
+        return mean_t, self_t
+
+    drained = _double_buffer(tiles, produce, consume)
+    mean = torch.cat([m for m, _ in drained], dim=0)
+    if route is not None:  # the owners' decoded slices (a tail's padded), gathered once
+        mean = _start_gather(group, mean, [route.chunks_per_owner] * len(counts))()[:n_chunks]
+    self_dec = None
+    if need_self:
+        self_dec = torch.cat([s for _, s in drained], dim=1)
+        cols = [columns(t)[0] for t in tiles]
+        if route is not None and any(c is not None for c in cols):
+            # the tiles saw owner-major columns: put them back in chunk order
+            col_order = np.concatenate([np.arange(n_chunks) if c is None else c for c in cols])
+            self_dec = self_dec[:, torch.as_tensor(np.argsort(col_order, kind="stable"),
+                                                   device=dev)]
+    return mean, self_dec
+
 def compressed_mean_tree(spec, key, tree, shardings=None, ef_chunks=None, participants=None,
                          overlap=False, overlap_tile=1, ownership=None, *, draws=None,
                          bank=None, device=None):
@@ -357,15 +651,23 @@ def compressed_mean_tree(spec, key, tree, shardings=None, ef_chunks=None, partic
     chunk axis (``streamed_mean``). ``ownership``: True / shard count /
     ``ChunkOwnership`` plan, decode owner-partitioned (``sharded_decode``).
     ``draws`` (stacked (n, 1|C, ...), for the participants) and ``bank``
-    replace the port's own draws and eigenvalue bank."""
-    if shardings is not None:
-        raise NotImplementedError("shardings= is not ported yet (ROADMAP A.9 dist/)")
+    replace the port's own draws and eigenvalue bank.
+
+    ``shardings`` (``dme_shardings(mesh)``): the GSPMD route, run by every
+    rank of the mesh's client axes, each holding the whole tree. Rank r
+    encodes the r-th ceil-split share of the reporting clients, the payloads
+    are gathered, and the decode is replicated, or routed to its owners when
+    ``ownership`` makes one owner a rank (else the plan's owners are
+    logical, as on the local route). The mean, info and ef_next are the
+    local route's, bitwise, on every rank; the residual rows are gathered
+    from the ranks that encoded them."""
     pipe = as_pipeline(spec)
     dev = resolve_device(device)
     tree = chunking.tree_unflatten(tree, [leaf.to(dev) for leaf in chunking.tree_leaves(tree)])
     chunks, restore, n_total, d_flat = _chunk_clients(tree, pipe.d_block)
     n_chunks = chunks.shape[1]
-    plan = ownership_plan(ownership, n_chunks, 1)
+    n_mesh = 1 if shardings is None else client_shards(shardings.mesh, shardings.client_axes)
+    plan = ownership_plan(ownership, n_chunks, n_mesh)
     if plan is not None:
         check_shardable(pipe)
     if participants is None:
@@ -377,15 +679,36 @@ def compressed_mean_tree(spec, key, tree, shardings=None, ef_chunks=None, partic
     if pipe.has_ef:
         ef_chunks = torch.zeros_like(chunks) if ef_chunks is None else ef_chunks.to(dev)
         x = x + (ef_chunks if ids is None else ef_chunks[ids_t])
-    if overlap:
+    if draws is None and shardings is None:
+        # the clients' maps, made once for the encode, the decode and the
+        # self-decode (and for every tile of the stream)
+        draws = pipe.sparsifier.round_draws(key, n, n_chunks, client_ids=ids, device=dev)
+    if shardings is not None:
+        if overlap:
+            check_streamable(pipe)
+        group, n_shards, shard = _client_group(shardings.mesh, shardings.client_axes)
+        share = -(-n // n_shards)
+        bounds = [(min(r * share, n), min((r + 1) * share, n)) for r in range(n_shards)]
+        stack_ids = np.arange(n_total) if ids is None else ids
+        rows = [stack_ids[lo:hi] for lo, hi in bounds]
+        lo, hi = bounds[shard]
+        routed = plan is not None and plan.n_shards == n_shards
+        with obs.span("dist", "payload_route", track="payload_route", backend="gspmd",
+                      shards=n_shards):
+            mean_chunks, self_dec = _mesh_mean(
+                pipe, key, x[lo:hi], rows, group, shard, dec_ids=ids,
+                route=plan if routed else None, plan=None if routed else plan,
+                overlap=overlap, tile=overlap_tile, need_self=pipe.has_ef, draws=draws,
+                bank=bank)
+            if pipe.has_ef:  # each rank's residual rows, gathered in share order
+                x = _start_gather(group, x[lo:hi] - self_dec, [len(r) for r in rows])()
+    elif overlap:
         mean_chunks, self_dec = streamed_mean(pipe, key, x, n, client_ids=ids,
                                               tile=overlap_tile, need_self=pipe.has_ef,
                                               ownership=plan, draws=draws, bank=bank)
         if pipe.has_ef:
             x -= self_dec
     else:
-        if draws is None:  # the clients' maps, made once for the encode and the decode
-            draws = pipe.sparsifier.round_draws(key, n, n_chunks, client_ids=ids, device=dev)
         # host-time spans on the round-phase tracks (attribution only: the
         # byte annotations stay with the fl driver, which owns the ledger)
         with obs.span("dist", "client_encode", track="client_encode", clients=n):
@@ -405,6 +728,116 @@ def compressed_mean_tree(spec, key, tree, shardings=None, ef_chunks=None, partic
     ef_next = None
     if pipe.has_ef:
         ef_next = x if ids is None else ef_chunks.index_copy(0, ids_t, x)
-    n_shards = plan.n_shards if plan is not None else 1
+    n_shards = plan.n_shards if plan is not None else n_mesh
     return restore(mean_chunks), _info(pipe, n, d_flat, n_chunks, n_total=n_total,
                                        n_shards=n_shards, plan=plan), ef_next
+
+
+def compressed_mean_tree_shardmap(spec, key, grads, mesh, client_axes=("pod",), ef_chunks=None,
+                                  participants=None, overlap=False, overlap_tile=1,
+                                  ownership=None, *, bank=None, device=None):
+    """The explicit-collective route, run by every rank of the mesh's
+    ``client_axes``: ``grads`` leaves (n_local, ...) hold THIS rank's
+    clients, global ids ``shard * n_local ...``, so n = n_local * shards.
+
+    Each rank encodes its clients; the payloads are all-gathered (the only
+    payload-sized cross-client traffic) and every rank decodes the same
+    mean. ``ownership`` (True / ``ChunkOwnership`` with one owner a rank):
+    each chunk's payloads go only to its owner (an all_to_all), the owner
+    decodes its slice at its global chunk offset, and one all_gather of the
+    decoded means assembles the mean. ``overlap``: the chunk axis streams in
+    tiles (owner-major columns under ``ownership``), each tile's transfer in
+    flight while the next one encodes.
+
+    ``participants``: global ids / mask of the reporting clients; only they
+    encode and enter the decode, with their ids, and only their residual
+    rows move. Error feedback: ``ef_chunks`` (n_local, C, d_block) are this
+    rank's residual rows and ``ef_next`` comes back the same: residual rows
+    never leave their rank. The JAX signature's ``param_pspecs`` has no
+    counterpart: the port keeps whole parameters on every rank.
+
+    Returns (mean tree, the same on every rank; info; ef_next | None), the
+    mean and residuals bitwise the local route's."""
+    pipe = as_pipeline(spec)
+    dev = resolve_device(device)
+    grads = chunking.tree_unflatten(grads, [leaf.to(dev) for leaf in chunking.tree_leaves(grads)])
+    group, n_shards, shard = _client_group(mesh, client_axes)
+    chunks, restore, n_local, d_flat = _chunk_clients(grads, pipe.d_block)
+    n_chunks, n = chunks.shape[1], n_local * n_shards
+    if overlap:
+        check_streamable(pipe)
+    plan = ownership_plan(ownership, n_chunks, n_shards)
+    if plan is not None:
+        if plan.n_shards != n_shards:
+            raise ValueError(
+                f"ownership plan has {plan.n_shards} owners but the mesh client axes "
+                f"{tuple(client_axes)} hold {n_shards} shards")
+        check_shardable(pipe)
+    part_ids = None if participants is None else _participant_ids(participants, n)
+    reporting = np.ones(n, bool)
+    if part_ids is not None:
+        reporting[:] = False
+        reporting[part_ids] = True
+    rows = [np.flatnonzero(reporting[q * n_local:(q + 1) * n_local]) + q * n_local
+            for q in range(n_shards)]
+    mine = torch.as_tensor(rows[shard] - shard * n_local, device=dev)
+    all_local = len(rows[shard]) == n_local
+    x = chunks if all_local else chunks[mine]
+    if pipe.has_ef:
+        ef_local = torch.zeros_like(chunks) if ef_chunks is None else ef_chunks.to(dev)
+        x = x + (ef_local if all_local else ef_local[mine])
+    with obs.span("dist", "payload_route", track="payload_route", backend="shard_map",
+                  shards=n_shards):
+        mean_chunks, self_dec = _mesh_mean(
+            pipe, key, x, rows, group, shard, dec_ids=part_ids, route=plan,
+            overlap=overlap, tile=overlap_tile, need_self=pipe.has_ef, bank=bank)
+    ef_next = None
+    if pipe.has_ef:
+        # x is this call's own tensor: it becomes the residual in place; the
+        # clients that did not report keep theirs
+        x -= self_dec
+        ef_next = x if all_local else ef_local.index_copy(0, mine, x)
+    n_eff = n if part_ids is None else len(part_ids)
+    return restore(mean_chunks), _info(pipe, n_eff, d_flat, n_chunks, n_total=n,
+                                       n_shards=n_shards, plan=plan), ef_next
+
+
+def psum_scatter_mean(tiles, counts, mesh, axis: str = "pod"):
+    """Count-weighted mean of per-pod tiles on a reduce-scatter: the
+    cross-pod combine of the hierarchical decode as a device collective.
+
+    ``tiles`` is (P, C, d_block), row p pod p's decoded estimate, and
+    ``counts`` (P,) its contributing client counts (0 marks an absent pod);
+    each rank of mesh ``axis`` contributes its own row, ``counts[p] *
+    tiles[p]``. A reduce-scatter sums the weighted rows and leaves each rank
+    1/P of the chunk axis (padded to a multiple of P), an all_reduce sums
+    the counts, and one all_gather of the normalised slices replicates
+
+        sum_p counts[p] * tiles[p] / sum_p counts[p]    (C, d_block)
+
+    on every rank. ``counts`` must sum to > 0. The reduction adds in the
+    backend's order, so the result matches the plain weighted mean within
+    float rounding, not bitwise."""
+    n_shards = shard_lib.mesh_axis_sizes(mesh)[axis]
+    tiles = torch.as_tensor(tiles)
+    counts = torch.as_tensor(counts, dtype=tiles.dtype, device=tiles.device)
+    if tiles.ndim != 3 or tiles.shape[0] != n_shards:
+        raise ValueError(f"tiles must be (n_shards={n_shards}, C, d_block), got "
+                         f"{tuple(tiles.shape)}")
+    if tuple(counts.shape) != (n_shards,):
+        raise ValueError(f"counts must be ({n_shards},), got {tuple(counts.shape)}")
+    group = mesh.get_group(axis)
+    p = dist.get_rank(group)
+    n_chunks = tiles.shape[1]
+    pad = (-n_chunks) % n_shards
+    contrib = counts[p] * tiles[p]
+    if pad:
+        contrib = torch.cat([contrib, contrib.new_zeros((pad, contrib.shape[1]))])
+    send = _to_wire(group, contrib)
+    part = send.new_empty((send.shape[0] // n_shards, send.shape[1]))
+    scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    scatter(part, send, group=group)
+    total = _to_wire(group, counts[p].reshape(1).clone())
+    dist.all_reduce(total, group=group)
+    full = _start_gather(group, part / total, [part.shape[0]] * n_shards)()
+    return _from_wire(full[:n_chunks], tiles.device)

@@ -1,5 +1,5 @@
 """The federated round driver: encode -> ledger -> decode -> task step (port
-of repro/fl/rounds.py, local backend).
+of repro/fl/rounds.py).
 
 One ``run_rounds`` call plays ``n_rounds`` of
 
@@ -23,10 +23,17 @@ groups are decoded independently (the group's budget rides in each
 payload's meta); EF residual rows live per client in ``ClientState.ef`` and
 follow their own k_i.
 
-Backend: "local" drives the pipeline directly, on the task's device. The
-mesh backends ("gspmd", "shard_map", ROADMAP A.9) and the hierarchical
-per-pod aggregation (``hierarchy="hier"``, ROADMAP A.10) are not ported and
-raise NotImplementedError before any work is done.
+Backends: "local" drives the pipeline directly, on the task's device;
+"gspmd" and "shard_map" route steps 3-5 through ``dist.collectives`` on
+``cfg.mesh`` (a ``DeviceMesh``), the same math with the payloads crossing
+ranks. Every rank runs the same driver with the same seed, so every rank
+holds every client's vector and the same ``History``. On "shard_map" a rank
+hands the collective its own clients' rows (n_clients must divide over the
+client axes; otherwise the round takes the "gspmd" route). Per-client
+temporal memories compose with both: the collectives move deltas against
+each client's memory, and the server mirrors the memory updates. The
+hierarchical per-pod aggregation (``hierarchy="hier"``, ROADMAP A.10) is
+not ported and raises NotImplementedError before any work is done.
 
 Async rounds (``RoundConfig(async_rounds=True)``): the server decodes
 whoever reported by the deadline and moves on. Stragglers' encodes (of THIS
@@ -88,8 +95,8 @@ class RoundConfig:
     temporal: bool = False      # broadcast temporal: decode deltas vs prev estimate
     track_r: bool | None = None  # default: only for transform="wavg"
     r_gamma: float = 0.3
-    backend: str = "local"      # local; gspmd | shard_map are ROADMAP A.9
-    mesh: Any = None            # for gspmd / shard_map (ROADMAP A.9)
+    backend: str = "local"      # local | gspmd | shard_map
+    mesh: Any = None            # a DeviceMesh, required for gspmd / shard_map
     client_axes: tuple = ("pod",)
     async_rounds: bool = False  # staleness-1 buffered aggregation
     staleness: int = 1          # max admitted payload age; 0 = drop late payloads
@@ -101,7 +108,9 @@ class RoundConfig:
     # from the previous estimate's per-chunk norm mass (rand_k only, local
     # backend, flat hierarchy, sync rounds)
     adaptive_budgets: bool = False
-    # logical owner shards on the local backend (0 = one owner)
+    # logical owner shards on local/gspmd (0 = one owner on local, the mesh's
+    # client shards on gspmd); the shard_map backend always uses the mesh's
+    # client shards (the all_to_all routing must match the ranks)
     n_owners: int = 0
     # hierarchical (per-pod) aggregation: "hier" is ROADMAP A.10
     hierarchy: str = "flat"     # flat | hier
@@ -241,6 +250,10 @@ def _group_local(pipe_g, key, xs_chunks, ids_g, side, mem_snapshot, cstate,
         pipe_g.payload_nbytes(xs_chunks.shape[1]) * len(ids_g)
         if obs.enabled() else 0
     )
+    # the clients' maps, made once for the encode and the decode (and for
+    # every tile of the stream)
+    draws = pipe_g.sparsifier.round_draws(key, len(ids_g), xs_chunks.shape[1],
+                                          client_ids=ids_g, device=xs_chunks.device)
     if overlap:
         # stateless by construction (run_rounds validates): stream the chunk
         # axis through the dist layer's double buffer, bit-identical. Encode
@@ -254,13 +267,10 @@ def _group_local(pipe_g, key, xs_chunks, ids_g, side, mem_snapshot, cstate,
                       clients=len(ids_g), overlap=True):
             dec, _ = collectives.streamed_mean(
                 pipe_g, key, _rows(xs_chunks, ids_g), len(ids_g), client_ids=ids_g,
-                side_info=side, tile=overlap_tile, ownership=plan,
+                side_info=side, tile=overlap_tile, ownership=plan, draws=draws,
             )
         return dec, cstate, None
     st_g = None if cstate is None else _take_state(cstate, ids_g)
-    # the clients' maps, made once for the encode and the decode
-    draws = pipe_g.sparsifier.round_draws(key, len(ids_g), xs_chunks.shape[1],
-                                          client_ids=ids_g, device=xs_chunks.device)
     with obs.span("fl", "client_encode", track="client_encode",
                   bytes=group_bytes, clients=len(ids_g), k=pipe_g.k):
         payloads, st_new = pipe_g.encode_all(
@@ -301,11 +311,91 @@ def _mark_quantize(pipe_g):
 
 
 def _ownership_arg(cfg):
-    """The ``ownership=`` value forwarded to dist.collectives: an explicit
-    ``n_owners`` sets the logical owner count, else one owner."""
+    """The ``ownership=`` value forwarded to dist.collectives. On shard_map
+    the MESH defines the owners (the all_to_all routing must match the
+    ranks, so ``n_owners`` is ignored there); on local/gspmd an explicit
+    ``n_owners`` sets the logical owner count, else the plan derives from
+    the mesh client axes (one owner on local)."""
     if not cfg.ownership:
         return None
+    if cfg.backend == "shard_map":
+        return True
     return cfg.n_owners if cfg.n_owners else True
+
+
+def _group_dist(pipe_g, key, xs_chunks, ids_g, side, mem_snapshot, cstate, cfg):
+    """One budget group through dist.collectives (gspmd / shard_map).
+
+    Per-client temporal memories compose here the same way the stale decode
+    composes everywhere: the collectives move DELTAS (each client's chunk
+    rows minus its own memory row, the exact subtraction the local encode
+    performs), and the server mirrors the deterministic ClientState updates
+    by re-running ``encode_all`` on its side (same key / ids / side /
+    residual => identical payloads => identical memory and EF updates). The
+    collective's own ``ef_next`` is ignored in that case: the mirror
+    computes both new buffers in one pass.
+
+    On shard_map the collective takes this rank's rows and gives back this
+    rank's residual rows; the driver keeps every client's state on every
+    rank (it reports them all), so it gathers the new rows after the
+    exchange, which itself never sends a residual.
+
+    Returns (group mean, updated state, bytes, intra-pod bytes, delta)."""
+    if mem_snapshot is not None:
+        delta = xs_chunks - mem_snapshot  # per-client side info, row-wise
+    elif side is not None:
+        delta = xs_chunks - side[None]
+    else:
+        delta = xs_chunks
+    ef_arr = cstate.ef if (cstate is not None and pipe_g.has_ef) else None
+    n_total = xs_chunks.shape[0]
+    shard_map = cfg.backend == "shard_map"
+    if shard_map:
+        if cfg.mesh is None:
+            raise ValueError("backend='shard_map' needs cfg.mesh")
+        n_shards, shard = collectives.client_shard(cfg.mesh, cfg.client_axes)
+        shard_map = n_total % n_shards == 0
+    if shard_map:
+        n_local = n_total // n_shards
+        lo, hi = shard * n_local, (shard + 1) * n_local
+        mean_tree, info, ef_next = collectives.compressed_mean_tree_shardmap(
+            pipe_g, key, {"x": delta[lo:hi]}, cfg.mesh, client_axes=cfg.client_axes,
+            participants=ids_g, ef_chunks=None if ef_arr is None else ef_arr[lo:hi],
+            overlap=cfg.overlap, overlap_tile=cfg.overlap_tile,
+            ownership=_ownership_arg(cfg), device=xs_chunks.device,
+        )
+        if ef_next is not None and mem_snapshot is None:
+            ef_next = collectives.gather_clients(ef_next, cfg.mesh, cfg.client_axes)
+    else:
+        mean_tree, info, ef_next = collectives.compressed_mean_tree(
+            pipe_g, key, {"x": delta}, collectives.dme_shardings(cfg.mesh, cfg.client_axes),
+            participants=ids_g, ef_chunks=ef_arr, overlap=cfg.overlap,
+            overlap_tile=cfg.overlap_tile, ownership=_ownership_arg(cfg),
+            device=xs_chunks.device,
+        )
+    if mem_snapshot is not None:
+        # mirror the clients' deterministic state transition server-side
+        # (memory AND ef rows advance together inside encode_all)
+        _, st_new = pipe_g.encode_all(
+            key, _rows(xs_chunks, ids_g), client_ids=ids_g, states=_take_state(cstate, ids_g)
+        )
+        cstate = _put_state(cstate, ids_g, st_new)
+    elif ef_next is not None:
+        cstate = ClientState(ef=ef_next, memory=cstate.memory)
+    mean_g = mean_tree["x"]
+    if mem_snapshot is not None:
+        mean_g = mean_g + _rows(mem_snapshot, ids_g).mean(0)
+    elif side is not None:
+        mean_g = mean_g + side
+    # the dist paths encode, route and decode inside one collectives call,
+    # so the phases get attribution markers here, bytes off the collectives'
+    # exact ledger
+    obs.marker("fl", "client_encode", track="client_encode",
+               bytes=info["bytes_sent"], clients=len(ids_g), backend=cfg.backend)
+    _mark_quantize(pipe_g)
+    obs.marker("fl", "owner_decode", track="owner_decode",
+               clients=len(ids_g), backend=cfg.backend)
+    return mean_g, cstate, info["bytes_sent"], info["intra_pod_bytes"], delta
 
 
 def _rederive_payloads(pipe_g, key, xs_chunks, side, ids_g, cstate):
@@ -357,7 +447,7 @@ def _decode_round(pipe, key, xs_chunks, part, cohort, state_srv, cfg, cstate,
     n_eff = part.n_survivors
     n_chunks = xs_chunks.shape[1]
     plan = None
-    if cfg.ownership:
+    if cfg.ownership and cfg.backend == "local":
         plan = collectives.ownership_plan(
             _ownership_arg(cfg), n_chunks, max(1, cfg.n_owners)
         )
@@ -382,28 +472,36 @@ def _decode_round(pipe, key, xs_chunks, part, cohort, state_srv, cfg, cstate,
                 chunk_budgets=adaptive_chunk_budgets(
                     chunk_mass, k_g, pipe.d_block)
             )
-        dec, cstate, payloads = _group_local(
-            pipe_g, key, xs_chunks, ids_g, side, mem_snapshot, cstate,
-            overlap=cfg.overlap, overlap_tile=cfg.overlap_tile, plan=plan,
-        )
-        raw_g = pipe_g.payload_nbytes(n_chunks) * len(ids_g)
+        if cfg.backend == "local":
+            dec, cstate, payloads = _group_local(
+                pipe_g, key, xs_chunks, ids_g, side, mem_snapshot, cstate,
+                overlap=cfg.overlap, overlap_tile=cfg.overlap_tile, plan=plan,
+            )
+            raw_g = pipe_g.payload_nbytes(n_chunks) * len(ids_g)
+            intra_pod += collectives.intra_pod_traffic(
+                pipe_g, len(ids_g), n_chunks,
+                plan.n_shards if plan is not None else 1, plan=plan,
+            )["intra_pod_bytes"]
+            enc_rows, enc_side = xs_chunks, side
+        else:
+            dec, cstate, raw_g, intra_g, enc_rows = _group_dist(
+                pipe_g, key, xs_chunks, ids_g, side, mem_snapshot, cstate, cfg
+            )
+            payloads, enc_side = None, None
+            intra_pod += intra_g
         bytes_sent += raw_g
-        intra_pod += collectives.intra_pod_traffic(
-            pipe_g, len(ids_g), n_chunks,
-            plan.n_shards if plan is not None else 1, plan=plan,
-        )["intra_pod_bytes"]
         if pipe_g.code_stage is None:
             coded_sent += raw_g
         else:
             pl = payloads if payloads is not None else _rederive_payloads(
-                pipe_g, key, xs_chunks, side, ids_g, pre_state)
+                pipe_g, key, enc_rows, enc_side, ids_g, pre_state)
             coded_sent += coded_payload_nbytes(pipe_g, pl)
         if not track:
             rho_g = None
         elif payloads is not None:
             rho_g = server_lib.measure_rho(pipe_g, key, payloads, ids_g)
         else:
-            rho_g = _measure_rho_dist(pipe_g, key, xs_chunks, side, ids_g, pre_state)
+            rho_g = _measure_rho_dist(pipe_g, key, enc_rows, enc_side, ids_g, pre_state)
         w = len(ids_g) / n_eff
         mean_chunks = dec * w if mean_chunks is None else mean_chunks + dec * w
         if rho_g is not None:
@@ -557,11 +655,7 @@ def _validate_cfg(pipe, cfg):
         raise NotImplementedError(
             "hierarchy='hier' (per-pod aggregation over runtime/) is not ported yet "
             "(ROADMAP A.10)")
-    if cfg.backend in ("gspmd", "shard_map"):
-        raise NotImplementedError(
-            f"backend={cfg.backend!r} (the mesh route of dist/) is not ported yet "
-            "(ROADMAP A.9)")
-    if cfg.backend != "local":
+    if cfg.backend not in ("local", "gspmd", "shard_map"):
         raise ValueError(f"unknown backend {cfg.backend!r}")
 
 

@@ -21,6 +21,13 @@
     # the same on the CPU, with the kernels' plain versions:
     PYTHONPATH=src python -m repro_torch.fl.run --device cpu --smoke
 
+    # the mesh route of dist/: one "pod" axis over the world, one rank
+    # alone or N ranks under torchrun (gloo on the CPU):
+    PYTHONPATH=src python -m repro_torch.fl.run --device cpu --task dme \
+        --backend shard_map --ownership
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.fl.run \
+        --device cpu --task dme --clients 4 --backend shard_map
+
     # a torch.profiler trace of the run (kernels, device time) into DIR, and
     # the metrics snapshot with the kernel telemetry (kernels/dispatch,
     # kernels/decode_route, kernels/cg_iters):
@@ -31,21 +38,26 @@ Runs on the card unless ``--device cpu`` asks for the CPU. Per-round lines
 report the task metric, the MSE against the survivors' true mean, the
 cumulative payload-byte ledger, and (async) admitted stale payloads;
 --compare prints an MSE-at-equal-bytes table across the baseline estimator
-family. The mesh backends (``--backend gspmd|shard_map``, ROADMAP A.9) and
-hierarchical pods and hosts (``--pods``, ``--hosts`` > 1, ROADMAP A.10) are
-not ported and raise NotImplementedError.
+family. ``--backend gspmd|shard_map`` runs the rounds on a mesh of one
+``pod`` axis over the process group's ranks (started by ``torchrun``, or
+this process alone); every rank prints the same History. Hierarchical pods
+and hosts (``--pods``, ``--hosts`` > 1, ROADMAP A.10) are not ported and
+raise NotImplementedError.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import math
+import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import obs, resolve_device
 from ..core import codec
+from ..dist import sharding
 from . import rounds as rounds_lib
 from .clients import Cohort
 from .tasks import get_task
@@ -138,8 +150,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "mass (docs/DESIGN.md §3.8)")
     ap.add_argument("--backend", default="local",
                     choices=["local", "gspmd", "shard_map"],
-                    help="round execution backend; gspmd and shard_map are "
-                         "not ported yet (ROADMAP A.9)")
+                    help="round execution backend; gspmd and shard_map run "
+                         "on a mesh of one pod axis over the ranks (torchrun) "
+                         "or this process alone")
     ap.add_argument("--pods", type=int, default=1,
                     help=">= 2 turns on hierarchical aggregation "
                          "(docs/DESIGN.md §11): pod-local correlation-aware "
@@ -225,9 +238,15 @@ def run_one(task, args, name, est_kw):
     )
     cohort = Cohort(n_clients=task.n_clients, participation=args.participation,
                     dropout=args.dropout)
+    mesh = None
+    if args.backend in ("gspmd", "shard_map"):
+        # every rank of the process group becomes the client axis
+        world = (dist.get_world_size() if dist.is_initialized()
+                 else int(os.environ.get("WORLD_SIZE", 1)))
+        mesh = sharding.make_mesh((world,), ("pod",), device=task.device)
     cfg = rounds_lib.RoundConfig(
         n_rounds=3 if args.smoke else args.rounds, seed=args.seed,
-        temporal=args.temporal, backend=args.backend,
+        temporal=args.temporal, backend=args.backend, mesh=mesh,
         async_rounds=getattr(args, "async_rounds", False),
         staleness=getattr(args, "staleness", 1),
         stale_weight=getattr(args, "stale_weight", 1.0),
@@ -346,10 +365,6 @@ def _write_obs_outputs(args, tracer, runs) -> None:
 def _refuse_unported(args) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for what the port
     does not run yet; before any work is done."""
-    if args.backend in ("gspmd", "shard_map"):
-        raise NotImplementedError(
-            f"--backend {args.backend} (the mesh route of dist/) is not ported yet "
-            "(ROADMAP A.9)")
     if args.pods > 1 or args.hosts > 1 or args.coordinator is not None:
         raise NotImplementedError(
             "--pods / --hosts > 1 / --coordinator (hierarchical aggregation over runtime/) is "
@@ -360,6 +375,17 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
     dev = resolve_device(args.device)
+    # a mesh backend joins torchrun's process group, or starts one of this
+    # process alone (sharding.make_mesh); the group ends with the run
+    own_group = args.backend != "local" and not dist.is_initialized()
+    try:
+        return _main(args, dev)
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args, dev) -> int:
     task = make_task(args, dev)
 
     tracer = None

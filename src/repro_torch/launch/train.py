@@ -12,7 +12,7 @@ plain versions).
 - Fault tolerance: checkpoints every --ckpt-every steps; restart the same
   command line and it resumes; --inject-failures demonstrates recovery.
 - Every arch trains; the default is mamba2-130m. --pipeline-stages is
-  ROADMAP A.9 and raises. The default --ckpt-dir is repro_ckpt under the
+  ROADMAP A.9.1 and raises. The default --ckpt-dir is repro_ckpt under the
   temporary directory (/tmp unless TMPDIR says otherwise).
 """
 from __future__ import annotations
@@ -49,7 +49,7 @@ def main(argv=None):
                          "(docs/DESIGN.md §10); 0 = replicated decode")
     ap.add_argument("--pipeline-stages", type=int, default=0,
                     help="layer-pipeline the block stack over this many "
-                         "devices (GPipe; ROADMAP A.9, raises); 0 = off")
+                         "devices (GPipe; ROADMAP A.9.1, raises); 0 = off")
     ap.add_argument("--pipeline-microbatches", type=int, default=0,
                     help="microbatch count for --pipeline-stages "
                          "(default: the stage count)")

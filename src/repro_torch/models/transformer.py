@@ -214,6 +214,18 @@ def init_params(cfg: ModelConfig, key, device=None):
     return build(defs)
 
 
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree's shapes and dtype without storage: meta tensors
+    (``jax.eval_shape(init_params)``'s counterpart)."""
+    return map_defs(lambda d: torch.empty(d.shape, dtype=cfg.params_dtype, device="meta"),
+                    param_defs(cfg))
+
+
+def param_axes(cfg: ModelConfig):
+    """Each parameter's logical axis names, in the parameter tree's layout."""
+    return map_defs(lambda d: d.axes, param_defs(cfg))
+
+
 # ------------------------------------------------------------------ forward
 
 

@@ -157,13 +157,26 @@ def latest_step(ckpt_dir: str) -> int | None:
     return s[-1] if s else None
 
 
+def _placement_leaves(tree) -> list:
+    """The leaves of a placement tree in ``chunking.tree_leaves`` order, None
+    (no placement) kept as a leaf."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _placement_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for sub in tree for leaf in _placement_leaves(sub)]
+    return [tree]
+
+
 def restore(ckpt_dir: str, tree_like, step: int | None = None, *, shardings=None):
     """Restore into the structure of ``tree_like``: each leaf on the device
-    of ``tree_like``'s leaf in its place. -> (tree, step). ``shardings``
-    (placement on a mesh) is ROADMAP A.9."""
-    if shardings is not None:
-        raise NotImplementedError("restore(shardings=) is not ported to repro_torch yet "
-                                  "(ROADMAP A.9)")
+    of ``tree_like``'s leaf in its place. -> (tree, step).
+
+    ``shardings``: a tree like ``tree_like`` of ``dist.sharding.NamedSharding``
+    (``param_shardings``) or None leaves, for an elastic restore onto a
+    mesh: each leaf with a placement becomes a DTensor, each rank keeping
+    its shard of the values it restored (``distribute_tensor`` with no
+    source rank: every rank reads the same checkpoint, so nothing is sent);
+    its ``full_tensor()`` is the plain restore."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -187,6 +200,15 @@ def restore(ckpt_dir: str, tree_like, step: int | None = None, *, shardings=None
                 i = int(name.split("_")[1])
                 host[i] = _from_host(z[name], meta["leaves"][i]["dtype"])
     out = [h.to(torch.as_tensor(like).device) for h, like in zip(host, leaves_like)]
+    if shardings is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        places = _placement_leaves(shardings)
+        if len(places) != len(out):
+            raise ValueError(f"shardings has {len(places)} leaves, the target tree {len(out)}")
+        out = [t if sh is None else distribute_tensor(t, sh.mesh, sh.placements,
+                                                      src_data_rank=None)
+               for t, sh in zip(out, places)]
     return chunking.tree_unflatten(tree_like, out), step
 
 

@@ -1,5 +1,5 @@
 """Training step factory (port of repro/train/train_step.py): loss ->
-per-client grads -> (compressed) mean -> optimizer, on one device.
+per-client grads -> (compressed) mean -> optimizer.
 
 Two modes:
   - dme_spec=None: the plain step, one gradient of the whole batch and the
@@ -16,10 +16,20 @@ codecs): a per-client residual buffer lives in train_state["ef"], added to
 the gradient before encoding and rebuilt from the pipeline's self-decode
 after.
 
-A step is functional: it returns new parameter and state trees and changes
-none it is given. The GSPMD / shard_map exchange over a mesh and the GPipe
-schedule (``pipeline_stages``) are ROADMAP A.9 and raise
+With ``mesh=`` (a ``DeviceMesh``) the exchange runs over the ranks of its
+client axes, every rank holding the whole parameters and applying the same
+update: ``dme_impl="shard_map"`` gives each rank its own clients (rank r
+takes the batch's clients ``r*n_local ...``; their losses and metrics are
+gathered, so every rank reports the all-client means), ``"gspmd"`` has
+every rank compute every client's gradient and encode its share, and
+``"auto"`` takes shard_map when the clients divide over the client axes,
+else gspmd. The update is bitwise the mesh-less step's. Placing parameters
+over a ``data`` or ``model`` axis (ROADMAP A.9.2) and the GPipe schedule
+(``pipeline_stages``, ROADMAP A.9.1) are not ported and raise
 NotImplementedError.
+
+A step is functional: it returns new parameter and state trees and changes
+none it is given.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from ..core import chunking
 from ..core import random as prand
 from ..core.codec import as_pipeline
 from ..dist import collectives
+from ..dist import sharding as shard_lib
 from ..models import transformer
 
 
@@ -71,21 +82,27 @@ def make_train_step(cfg, optimizer, *, dme_spec=None, mesh=None, client_axes=("p
     ``dme_overlap=True`` streams the gradient's chunk axis through the
     collectives' double buffer, bit-identical to the synchronous exchange;
     it needs a chunk-streamable pipeline. ``dme_ownership`` (True / owner
-    count / ``dist.sharding.ChunkOwnership``) decodes owner-partitioned, one
-    logical owner after another, bit-identical to the whole decode.
-    ``client_axes`` and ``pipeline_axis`` name mesh axes; with no mesh they
-    are not read. The metrics: loss, ce, aux, grad_norm, lr, and with a
-    pipeline compression_ratio (and intra_pod_reduction with ownership)."""
+    count / ``dist.sharding.ChunkOwnership``) decodes owner-partitioned,
+    bit-identical to the whole decode: on the shard_map route each rank
+    receives and decodes only the chunks it owns. ``mesh`` / ``client_axes``
+    / ``dme_impl`` (auto | shard_map | gspmd): the exchange over the ranks
+    (module docstring). On the shard_map route ``state["ef"]`` holds this
+    rank's residual rows; a buffer of all n_clients rows going in is cut to
+    them. The metrics: loss, ce, aux, grad_norm, lr, and with a pipeline
+    compression_ratio (and intra_pod_reduction with ownership)."""
     if pipeline_stages:
         raise NotImplementedError(
             f"pipeline_stages={pipeline_stages}: the GPipe schedule (dist/pipeline.py) is not "
-            "ported to repro_torch yet (ROADMAP A.9)")
+            "ported to repro_torch yet (ROADMAP A.9.1)")
+    if dme_impl not in ("auto", "shard_map", "gspmd"):
+        raise ValueError(f"dme_impl must be auto, shard_map or gspmd, got {dme_impl!r}")
     if mesh is not None:
-        raise NotImplementedError("mesh= (the GSPMD / shard_map gradient exchange) is not "
-                                  "ported to repro_torch yet (ROADMAP A.9)")
-    if dme_impl == "shard_map":
-        raise NotImplementedError("dme_impl='shard_map' is not ported to repro_torch yet "
-                                  "(ROADMAP A.9)")
+        placed = {a: s for a, s in shard_lib.mesh_axis_sizes(mesh).items()
+                  if a in ("data", "model") and s > 1}
+        if placed:
+            raise NotImplementedError(
+                f"mesh axes {placed}: placing parameters over a data or model axis is not "
+                "ported to repro_torch yet (ROADMAP A.9.2); give them size 1")
     dev = resolve_device(device)
 
     def _on_device(batch):
@@ -106,34 +123,56 @@ def make_train_step(cfg, optimizer, *, dme_spec=None, mesh=None, client_axes=("p
     if dme_ownership:
         collectives.check_shardable(pipe)
     base_key = prand.key(seed, dev)
+    shardings = collectives.dme_shardings(mesh, client_axes)
+    n_shards, shard = (1, 0) if shardings is None else collectives.client_shard(mesh,
+                                                                                 client_axes)
 
     def dme_step(params, state, batch, step):
         key = prand.fold_in(base_key, step)
         batch = _on_device(batch)
         n = batch["inputs"].shape[0]
+        shard_map = (shardings is not None and dme_impl != "gspmd"
+                     and n % n_shards == 0)
+        lo, hi = (shard * (n // n_shards), (shard + 1) * (n // n_shards)) if shard_map \
+            else (0, n)
         leaves = chunking.tree_leaves(params)
-        stacked = [torch.empty((n,) + tuple(p.shape), dtype=p.dtype, device=p.device)
+        stacked = [torch.empty((hi - lo,) + tuple(p.shape), dtype=p.dtype, device=p.device)
                    for p in leaves]
         losses, metrics = [], []
-        for i in range(n):
+        for i in range(lo, hi):
             loss, m, grads = _value_and_grad(params, cfg, {k: v[i] for k, v in batch.items()})
             for dst, g in zip(stacked, chunking.tree_leaves(grads)):
-                dst[i].copy_(g)
+                dst[i - lo].copy_(g)
             del grads
             losses.append(loss)
             metrics.append(m)
-        grad_mean, info, new_ef = collectives.compressed_mean_tree(
-            pipe, key, chunking.tree_unflatten(params, stacked), ef_chunks=state.get("ef"),
-            overlap=dme_overlap, overlap_tile=dme_overlap_tile,
-            ownership=dme_ownership or None, device=dev)
-        del stacked
+        losses = torch.stack(losses)
+        metrics = {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+        grads = chunking.tree_unflatten(params, stacked)
+        ef = state.get("ef")
+        if shard_map:
+            if ef is not None and ef.shape[0] == n:
+                ef = ef[lo:hi]
+            grad_mean, info, new_ef = collectives.compressed_mean_tree_shardmap(
+                pipe, key, grads, mesh, client_axes=client_axes, ef_chunks=ef,
+                overlap=dme_overlap, overlap_tile=dme_overlap_tile,
+                ownership=dme_ownership or None, device=dev)
+            # every rank reports the all-client means
+            losses = collectives.gather_clients(losses, mesh, client_axes)
+            metrics = {k: collectives.gather_clients(v, mesh, client_axes)
+                       for k, v in metrics.items()}
+        else:
+            grad_mean, info, new_ef = collectives.compressed_mean_tree(
+                pipe, key, grads, shardings, ef_chunks=ef, overlap=dme_overlap,
+                overlap_tile=dme_overlap_tile, ownership=dme_ownership or None, device=dev)
+        del stacked, grads
         params, opt, om = optimizer.update(grad_mean, state["opt"], params)
         new_state = {"opt": opt}
         if new_ef is not None:
             new_state["ef"] = new_ef
         out = {
-            "loss": torch.stack(losses).mean(),
-            **{k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]},
+            "loss": losses.mean(),
+            **{k: v.mean() for k, v in metrics.items()},
             **om,
             "compression_ratio": info["full_bytes"] / max(info["payload_bytes_per_client"], 1),
         }

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from jax.flatten_util import ravel_pytree
 
 from repro.core import beta as jbeta
@@ -135,10 +136,20 @@ def test_compressed_mean_tree_matches_jax(case):
 
 
 def test_unported_routes_raise():
+    """The route once refused here (``shardings=``, ROADMAP A.9) runs: on a
+    one-rank gloo mesh it is the local route, bitwise."""
     tree = interop.tree_from_numpy(_tree(2, 4), "cpu")
     spec = tcodec.RandProjSpatial(k=K, d_block=D_BLOCK)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        tcoll.compressed_mean_tree(spec, 0, tree, device="cpu", shardings=object())
+    want, _, _ = tcoll.compressed_mean_tree(spec, 0, tree, device="cpu")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = tshard.make_mesh((1,), ("pod",), device="cpu")
+        got, info, _ = tcoll.compressed_mean_tree(spec, 0, tree, device="cpu",
+                                                  shardings=tcoll.dme_shardings(mesh))
+    finally:
+        dist.destroy_process_group()
+    assert info["n_shards"] == 1
+    assert all(torch.equal(got[name], want[name]) for name in SHAPES)
 
 
 # ------------------------------------------- the stream and the owner decode

@@ -8,10 +8,10 @@
   model's prefill;
 - the FL layer's entry points (``get_task``, ``run_rounds``, the CLI) run
   on the card unless asked for the CPU;
-- what is not ported yet (GSPMD shardings, the gspmd / shard_map round
-  backends, hierarchical rounds) raises NotImplementedError naming its
-  ROADMAP item; Mamba layers, the MoE FFN and the profiler session, once
-  refused, run.
+- what is not ported yet (hierarchical rounds, the GPipe schedule,
+  parameters placed over a data or model mesh axis) raises
+  NotImplementedError naming its ROADMAP item; Mamba layers, the MoE FFN,
+  the profiler session and the mesh route of dist/, once refused, run.
 """
 from __future__ import annotations
 
@@ -23,11 +23,12 @@ import numpy as np
 
 import pytest
 import torch
+import torch.distributed as dist
 
 import repro_torch
 from repro_torch.core import codec
 from repro_torch.core.estimators import base as est_base
-from repro_torch.dist import collectives
+from repro_torch.dist import collectives, sharding
 from repro_torch import configs, interop
 from repro_torch.fl import rounds as fl_rounds
 from repro_torch.fl import run as fl_run
@@ -36,6 +37,8 @@ from repro_torch.core import beta
 from repro_torch.kernels import _build, ops
 from repro_torch.launch import serve
 from repro_torch.models import transformer
+from repro_torch.optim import AdamW
+from repro_torch.train import make_train_step
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -158,25 +161,48 @@ def test_cpu_path_never_touches_the_kernel_build(monkeypatch, spec):
 
 
 def test_unported_options_raise():
+    """What is not ported raises, naming its ROADMAP item; the mesh route of
+    dist/ (A.9: ``shardings=``, the gspmd / shard_map round backends and
+    the CLI's ``--backend``), once refused here, runs on a one-rank mesh."""
     with pytest.raises(KeyError, match="unknown estimator"):
         est_base.get("rand_q")
     with pytest.raises(TypeError, match="not a codec stage"):
         codec.Pipeline([codec.RandK(k=4, d_block=32), types.SimpleNamespace(role="compress")])
     tree = {"w": torch.zeros(2, 64)}
     spec = codec.RandK(k=8, d_block=64)
-    with pytest.raises(NotImplementedError, match=r"shardings.*ROADMAP A\.9"):
-        collectives.compressed_mean_tree(spec, 0, tree, device="cpu", shardings=object())
     task = fl_tasks.get_task("dme", device="cpu", n_clients=2, d=64)
-    for cfg, item in ((fl_rounds.RoundConfig(backend="gspmd"), r"gspmd.*ROADMAP A\.9"),
-                      (fl_rounds.RoundConfig(backend="shard_map"), r"shard_map.*ROADMAP A\.9"),
-                      (fl_rounds.RoundConfig(hierarchy="hier", pods=2), r"hier.*ROADMAP A\.10")):
-        with pytest.raises(NotImplementedError, match=item):
-            fl_rounds.run_rounds(task, spec, cfg=cfg, device="cpu")
-    for argv, item in ((["--backend", "gspmd"], r"gspmd.*ROADMAP A\.9"),
-                       (["--pods", "2"], r"pods.*ROADMAP A\.10"),
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = sharding.make_mesh((1,), ("pod",), device="cpu")
+        _, info, _ = collectives.compressed_mean_tree(
+            spec, 0, tree, device="cpu", shardings=collectives.dme_shardings(mesh))
+        assert info["n_shards"] == 1
+        for backend in ("gspmd", "shard_map"):
+            _, hist = fl_rounds.run_rounds(
+                task, spec, cfg=fl_rounds.RoundConfig(n_rounds=1, backend=backend, mesh=mesh),
+                device="cpu")
+            assert len(hist.mse) == 1
+    finally:
+        dist.destroy_process_group()
+    assert fl_run.main(["--device", "cpu", "--smoke", "--task", "dme", "--backend", "gspmd"]) == 0
+    assert not dist.is_initialized()  # the CLI ends the group it started
+    with pytest.raises(NotImplementedError, match=r"hier.*ROADMAP A\.10"):
+        fl_rounds.run_rounds(task, spec, cfg=fl_rounds.RoundConfig(hierarchy="hier", pods=2),
+                             device="cpu")
+    for argv, item in ((["--pods", "2"], r"pods.*ROADMAP A\.10"),
                        (["--hosts", "2"], r"hosts.*ROADMAP A\.10")):
         with pytest.raises(NotImplementedError, match=item):
             fl_run.main(["--device", "cpu", "--smoke", "--task", "dme", *argv])
+    # what this slice leaves: the GPipe schedule and parameters placed over
+    # a data or model axis
+    cfg = configs.preset_config("musicgen-medium", "tiny")
+    with pytest.raises(NotImplementedError, match=r"pipeline_stages.*ROADMAP A\.9\.1"):
+        make_train_step(cfg, AdamW(), pipeline_stages=2, device="cpu")
+    for shape in ((1, 2, 1), (1, 1, 2)):
+        mesh = types.SimpleNamespace(axis_names=("pod", "data", "model"),
+                                     devices=np.empty(shape))
+        with pytest.raises(NotImplementedError, match=r"data or model axis.*ROADMAP A\.9\.2"):
+            make_train_step(cfg, AdamW(), mesh=mesh, device="cpu")
     with pytest.raises(ValueError):
         ops.fwht(torch.randn(2, 8), use_kernel="sometimes")
 

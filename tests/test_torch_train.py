@@ -31,6 +31,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -489,8 +490,14 @@ def test_checkpoint_roundtrip(tmp_path):
         assert a.dtype == b.dtype and torch.equal(a, b)
     with pytest.raises(ValueError, match="leaf"):
         ckpt.restore(str(tmp_path), {"a": like["a"], "z": like["b"], "e": like["e"]})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
-        ckpt.restore(str(tmp_path), like, shardings=object())
+    # shardings= (ROADMAP A.9), once refused: None leaves keep the plain restore,
+    # and a placement tree must match the target's leaves
+    placed, _ = ckpt.restore(str(tmp_path), like,
+                             shardings=jax.tree.map(lambda _: None, like))
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(placed)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="shardings has"):
+        ckpt.restore(str(tmp_path), like, shardings={"a": None})
 
 
 def test_checkpoint_keep_n_and_crash_safety(tmp_path):
@@ -573,14 +580,27 @@ def test_cli_default_arch_takes_a_step(tmp_path, capsys):
 
 
 def test_unported_options_raise():
+    """The GPipe schedule and parameters placed over a data / model mesh
+    axis raise, naming their ROADMAP items; ``dme_impl="shard_map"``, once
+    refused, takes the local route without a mesh, as in the JAX package."""
     cfg = _cfgs("musicgen-medium")[1]
-    for kw, item in ((dict(pipeline_stages=2), r"pipeline_stages.*ROADMAP A\.9"),
-                     (dict(mesh=object()), r"mesh.*ROADMAP A\.9"),
-                     (dict(dme_spec=tcodec.build("rand_k", k=4, d_block=64),
-                           dme_impl="shard_map"), r"shard_map.*ROADMAP A\.9")):
+    data_mesh = types.SimpleNamespace(axis_names=("pod", "data"), devices=np.empty((1, 2)))
+    for kw, item in ((dict(pipeline_stages=2), r"pipeline_stages.*ROADMAP A\.9\.1"),
+                     (dict(mesh=data_mesh), r"data or model axis.*ROADMAP A\.9\.2")):
         with pytest.raises(NotImplementedError, match=item):
             make_train_step(cfg, AdamW(), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
+    with pytest.raises(ValueError, match="dme_impl"):
+        make_train_step(cfg, AdamW(), device="cpu", dme_impl="pmap")
+    spec = tcodec.build("rand_k", k=4, d_block=64)
+    params = ttf.init_params(cfg, 0, device="cpu")
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=8, batch=1, n_clients=2,
+                        seed=0).batch_at(0, "cpu")
+    want = make_train_step(cfg, AdamW(), dme_spec=spec, device="cpu")(
+        params, {"opt": AdamW().init(params)}, batch, 0)[0]
+    got = make_train_step(cfg, AdamW(), dme_spec=spec, dme_impl="shard_map", device="cpu")(
+        params, {"opt": AdamW().init(params)}, batch, 0)[0]
+    assert all(torch.equal(a, b) for a, b in zip(jax.tree.leaves(want), jax.tree.leaves(got)))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9\.1"):
         tlaunch.main(["--device", "cpu", "--arch", "gemma3-4b", "--pipeline-stages", "2"])
 
 

@@ -1,0 +1,282 @@
+"""Rank bodies of the port's multi-rank tests (tests/test_torch_dist_mesh.py).
+
+``run_ranks(body, world, tmp_path)`` spawns ``world`` processes with
+torch.multiprocessing, joins them into one gloo group through a FileStore
+under ``tmp_path`` (no TCP port, so parallel test workers cannot collide),
+runs ``BODIES[body](rank, world)`` in each on one thread, and returns every
+rank's result, written with ``torch.save``. A rank that raises fails the
+call with its traceback; a group that outlives the deadline is killed and
+fails it. The ranks import no JAX.
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch import configs
+from repro_torch.core import chunking, codec
+from repro_torch.data import SyntheticLM
+from repro_torch.dist import collectives as coll
+from repro_torch.dist import sharding
+from repro_torch.fl import Cohort, RoundConfig, get_task, run_rounds
+from repro_torch.models import init_params
+from repro_torch.optim import AdamW
+from repro_torch.train import checkpoint, init_train_state, make_train_step
+
+DEADLINE_S = 120
+KEY = 0
+N_CLIENTS = 8
+SPECS = {  # tests/test_ownership.py's four-shard subprocess
+    "rand_proj_spatial": lambda: codec.RandProjSpatial(k=16, d_block=128),
+    "rand_k_per_chunk": lambda: codec.RandK(k=16, d_block=128, shared_randomness=False),
+    # every kept coordinate gets a slot, as in tests/test_torch_seeded.py
+    "wangni": lambda: codec.Wangni(k=16, d_block=128, capacity=8.0),
+    "induced": lambda: codec.Induced(k=16, d_block=128),
+    "identity": lambda: codec.Identity(d_block=128),
+    "rand_k_int8": lambda: codec.Pipeline([codec.RandK(k=16, d_block=128), codec.Int8Quant()]),
+}
+PARTICIPANTS = [0, 2, 5, 6, 7]
+PSUM_CHUNKS = (3, 4, 8)
+PSUM_COUNTS = [2.0, 3.0, 1.0, 4.0]
+TRAIN_CLIENTS, TRAIN_STEPS = 4, 2
+
+
+def ef_pipe(k: int = 16, d_block: int = 128):
+    return codec.Pipeline([codec.RandK(k=k, d_block=d_block), codec.ErrorFeedback()])
+
+
+def tree(n: int = N_CLIENTS) -> dict:
+    rng = np.random.default_rng(0)
+    return {"w": torch.from_numpy(rng.standard_normal((n, 40, 20)).astype(np.float32)),
+            "b": torch.from_numpy(rng.standard_normal((n, 33)).astype(np.float32))}
+
+
+def big_tree() -> dict:
+    """n k payload bytes a chunk well above d's: the owner route moves fewer."""
+    rng = np.random.default_rng(1)
+    return {"w": torch.from_numpy(rng.standard_normal((N_CLIENTS, 64, 32)).astype(np.float32))}
+
+
+RAGGED = {  # (leaf shape a client, d_block): 7 chunks over 4 owners, and 3
+    "ragged": ((5, 84), 64),
+    "more_shards": ((150,), 64),
+}
+
+
+def ragged_tree(name: str) -> dict:
+    shape, _ = RAGGED[name]
+    rng = np.random.default_rng(2)
+    return {"w": torch.from_numpy(rng.standard_normal((N_CLIENTS,) + shape).astype(np.float32))}
+
+
+def psum_tiles(n_chunks: int) -> torch.Tensor:
+    rng = np.random.default_rng(n_chunks)
+    return torch.from_numpy(rng.standard_normal((4, n_chunks, 16)).astype(np.float32))
+
+
+ROUND_CASES = {  # name -> (pipeline, RoundConfig fields beside the backend, backends)
+    "srht": (lambda: codec.RandProjSpatial(k=16, d_block=128, transform="avg"), {},
+             ("gspmd", "shard_map")),
+    "srht_owners": (lambda: codec.RandProjSpatial(k=16, d_block=128, transform="avg"),
+                    {"ownership": True, "n_owners": 4}, ("gspmd", "shard_map")),
+    # the driver gathers the residual rows; the server mirrors the memories
+    "top_k_ef": (lambda: codec.build("top_k", k=16, d_block=128, ef=True), {}, ("shard_map",)),
+    "rand_k_client_temporal": (lambda: codec.build("rand_k", k=16, d_block=128, temporal=True),
+                               {"ownership": True}, ("shard_map",)),
+}
+
+
+def rounds(case: str, backend: str, mesh=None):
+    make, kw, _ = ROUND_CASES[case]
+    task = get_task("drift", n_clients=N_CLIENTS, d=128, rho=0.95, omega=0.02, device="cpu")
+    cohort = Cohort(n_clients=N_CLIENTS, dropout=0.2)
+    cfg = RoundConfig(n_rounds=3, backend=backend, mesh=mesh, **kw)
+    _, hist = run_rounds(task, make(), cohort, cfg, device="cpu")
+    return hist
+
+
+def history(hist) -> dict:
+    out = {k: list(getattr(hist, k)) for k in ("mse", "mse_pop", "bytes", "coded_bytes",
+                                               "intra_pod_bytes", "n_survivors")}
+    st = hist.client_state
+    out["state"] = None if st is None else {"ef": st.ef, "memory": st.memory}
+    return out
+
+
+TRAIN_ARCH = "musicgen-medium"
+
+
+def train_setup(n_clients: int = TRAIN_CLIENTS):
+    cfg = configs.preset_config(TRAIN_ARCH, "tiny")
+    params = init_params(cfg, 0, device="cpu")
+    opt = AdamW(lr=1e-2, warmup_steps=1)
+    spec = codec.build("top_k", k=16, d_block=256, ef=True)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=8, batch=1, n_clients=n_clients,
+                       seed=0)
+    return cfg, params, opt, spec, data
+
+
+def train(mesh=None, n_clients: int = TRAIN_CLIENTS, **kw) -> dict:
+    """TRAIN_STEPS DME steps with error feedback: the parameters, the last
+    step's metrics and residual rows."""
+    cfg, params, opt, spec, data = train_setup(n_clients)
+    state = init_train_state(cfg, opt, params, spec, n_clients)
+    step_fn = make_train_step(cfg, opt, dme_spec=spec, mesh=mesh, device="cpu", **kw)
+    for step in range(TRAIN_STEPS):
+        params, state, metrics = step_fn(params, state, data.batch_at(step, "cpu"), step)
+    return {"params": chunking.tree_leaves(params), "ef": state["ef"],
+            "metrics": {k: torch.as_tensor(v) for k, v in metrics.items()}}
+
+
+# ------------------------------------------------------------------ bodies
+
+
+def _rows(t: dict, rank: int, n_local: int) -> dict:
+    return {k: v[rank * n_local:(rank + 1) * n_local] for k, v in t.items()}
+
+
+def _mean(m: dict) -> torch.Tensor:
+    return torch.cat([leaf.reshape(-1) for leaf in chunking.tree_leaves(m)])
+
+
+def _shardmap(spec, grads, mesh, **kw):
+    m, info, ef = coll.compressed_mean_tree_shardmap(spec, KEY, grads, mesh, device="cpu", **kw)
+    return {"mean": _mean(m), "info": info, "ef": ef}
+
+
+def _gspmd(spec, grads, mesh, **kw):
+    m, info, ef = coll.compressed_mean_tree(spec, KEY, grads, coll.dme_shardings(mesh),
+                                            device="cpu", **kw)
+    return {"mean": _mean(m), "info": info, "ef": ef}
+
+
+def four_ranks(rank: int, world: int) -> dict:
+    mesh = sharding.make_mesh((world,), ("pod",), device="cpu")
+    n_local = N_CLIENTS // world
+    full = tree()
+    mine = _rows(full, rank, n_local)
+    out: dict = {}
+    for name, make in SPECS.items():
+        out[f"{name}/shard_map"] = _shardmap(make(), mine, mesh)
+        out[f"{name}/shard_map_owners"] = _shardmap(make(), mine, mesh, ownership=True)
+    rps = SPECS["rand_proj_spatial"]()
+    out["rand_proj_spatial/gspmd"] = _gspmd(rps, full, mesh)
+    out["rand_proj_spatial/gspmd_owners"] = _gspmd(rps, full, mesh, ownership=True)
+    pipe = ef_pipe()
+    out["ef/shard_map_participants"] = _shardmap(pipe, mine, mesh, participants=PARTICIPANTS)
+    first = _shardmap(pipe, mine, mesh, participants=PARTICIPANTS, ownership=True)
+    out["ef/shard_map_participants_owners"] = first
+    out["ef/shard_map_owners_second"] = _shardmap(pipe, mine, mesh, ef_chunks=first["ef"],
+                                                  ownership=True)
+    out["ef/shard_map_owners_overlap"] = _shardmap(pipe, mine, mesh, ownership=True,
+                                                   overlap=True, overlap_tile=2)
+    out["ef/gspmd_participants_owners_overlap"] = _gspmd(
+        pipe, full, mesh, participants=PARTICIPANTS, ownership=True, overlap=True,
+        overlap_tile=2)
+    for name, (_, d_block) in RAGGED.items():
+        grid = ragged_tree(name)
+        mine_r = _rows(grid, rank, n_local)
+        small = codec.RandProjSpatial(k=8, d_block=d_block)
+        out[f"{name}/owners"] = _shardmap(small, mine_r, mesh, ownership=True)
+        out[f"{name}/owners_overlap"] = _shardmap(small, mine_r, mesh, ownership=True,
+                                                  overlap=True, overlap_tile=1)
+        out[f"{name}/ef_participants_owners_overlap"] = _shardmap(
+            ef_pipe(8, d_block), mine_r, mesh, participants=PARTICIPANTS, ownership=True,
+            overlap=True, overlap_tile=1)
+    beta8 = codec.RandProjSpatial(k=64, d_block=128, beta_trials=8)
+    mine_b = _rows(big_tree(), rank, n_local)
+    out["beta8/shard_map"] = _shardmap(beta8, mine_b, mesh)
+    out["beta8/shard_map_owners"] = _shardmap(beta8, mine_b, mesh, ownership=True)
+    for c in PSUM_CHUNKS:
+        out[f"psum/{c}"] = coll.psum_scatter_mean(psum_tiles(c), PSUM_COUNTS, mesh)
+    for case, (_, _, backends) in ROUND_CASES.items():
+        for backend in backends:
+            out[f"rounds/{case}/{backend}"] = history(rounds(case, backend, mesh))
+    out["train/shard_map"] = train(mesh)
+    # two client axes, flattened into one group of four
+    mesh2 = sharding.make_mesh((2, 2), ("pod", "data"), device="cpu")
+    out["two_axes/shard_map"] = _shardmap(rps, mine, mesh2, client_axes=("pod", "data"))
+    out["two_axes/shard_map_owners"] = _shardmap(rps, mine, mesh2, client_axes=("pod", "data"),
+                                                 ownership=True)
+    out["imported"] = sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    return out
+
+
+def restore_case(world: int) -> dict:
+    """A checkpoint of tiny musicgen-medium's parameters restored onto a
+    ``model`` mesh axis over the ranks: each leaf's full_tensor() against
+    the plain restore, and how many leaves were sharded."""
+    import tempfile
+
+    cfg = configs.preset_config(TRAIN_ARCH, "tiny")
+    params = init_params(cfg, 0, device="cpu")
+    mesh = sharding.make_mesh((world,), ("model",), device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save(d, 1, params)
+        plain, _ = checkpoint.restore(d, params)
+        placed, step = checkpoint.restore(d, params, shardings=sharding.param_shardings(cfg, mesh))
+    pairs = list(zip(chunking.tree_leaves(plain), chunking.tree_leaves(placed)))
+    return {"step": step,
+            "bitwise": [bool(torch.equal(a, b.full_tensor())) for a, b in pairs],
+            "sharded": sum(any(not p.is_replicate() for p in b.placements) for _, b in pairs),
+            "leaves": len(pairs)}
+
+
+def two_ranks(rank: int, world: int) -> dict:
+    """The GSPMD route with n = 5 clients over 2 ranks (shares of 3 and 2),
+    training steps whose 3 clients do not divide over them (auto takes the
+    GSPMD route), and a restore onto the ranks."""
+    mesh = sharding.make_mesh((world,), ("pod",), device="cpu")
+    full = tree(5)
+    rps = SPECS["rand_proj_spatial"]()
+    return {
+        "gspmd": _gspmd(rps, full, mesh),
+        "gspmd_owners": _gspmd(rps, full, mesh, ownership=True),
+        "gspmd_ef": _gspmd(ef_pipe(), full, mesh, participants=[0, 1, 3, 4], ownership=True,
+                           overlap=True, overlap_tile=2),
+        "train_auto": train(mesh, n_clients=3),
+        "restore": restore_case(world),
+    }
+
+
+BODIES = {"four_ranks": four_ranks, "two_ranks": two_ranks}
+
+
+# --------------------------------------------------------------- the spawn
+
+
+def _entry(rank: int, world: int, store: str, out_dir: str, body: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        result = BODIES[body](rank, world)
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(body: str, world: int, tmp_path) -> list:
+    """Every rank's result of ``BODIES[body]`` run on ``world`` spawned gloo
+    ranks; fails past DEADLINE_S, or with a rank's traceback."""
+    out_dir = str(tmp_path)
+    ctx = mp.start_processes(_entry, args=(world, os.path.join(out_dir, "store"), out_dir, body),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DEADLINE_S
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{body}: {world} ranks still running after {DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]

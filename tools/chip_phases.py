@@ -5,12 +5,18 @@ environment and build phases (each phase's checks stay fatal):
     python3 tools/chip_phases.py train_mamba train_cli train_card_vs_cpu \\
         serve_mamba serve_moe flash_d128
     python3 tools/chip_phases.py gc_probe
+    python3 tools/chip_phases.py dist
 
 ``gc_probe`` times the mamba2-130m training cell ((d)) three times in one
 process: fresh, after ``phase_fl`` (which leaves millions of live Python
 objects), and after ``gc.collect(); gc.freeze()``, and prints the three
 step medians on a line of their own. ``flash_d128`` needs ``serve_moe``
-before it (its launch count).
+before it (its launch count). ``dist`` runs ``phase_dist`` on the
+estimator phases' gradient tree. ``dist_timing`` times warm estimator
+rounds on the local route (sync, overlapped, 4 logical owners) and, where
+the checkout has them, on the mesh routes of one NCCL rank, and counts the
+kernel launches of one overlapped local round; it runs on an older
+checkout too, to compare two trees in one call.
 """
 from __future__ import annotations
 
@@ -44,6 +50,46 @@ def gc_probe(smi: str) -> dict:
     return out
 
 
+def dist_timing(smi: str) -> dict:
+    """Wall ms (CUDA events) of 5 warm calls, after 2, of each route on the
+    estimator phases' tree and first shared key, and the cudaLaunchKernel
+    calls of one overlapped local round (tiles of FL_OVERLAP_TILE)."""
+    from repro_torch.dist import collectives
+
+    tree, spec, seed = cs.gradient_tree(), cs._spec(True, "auto"), cs.SHARED_BASELINE_SEED
+    overlap = {"overlap": True, "overlap_tile": cs.FL_OVERLAP_TILE}
+    fns = {name: (lambda kw=kw: collectives.compressed_mean_tree(spec, seed, tree, device=cs.DEV,
+                                                                 **kw))
+           for name, kw in (("local", {}), ("local_overlap", overlap),
+                            ("local_owners4", {"ownership": 4}))}
+    if hasattr(collectives, "compressed_mean_tree_shardmap"):
+        from repro_torch.dist import sharding
+
+        mesh = sharding.make_mesh((1,), ("pod",), device=cs.DEV)
+        fns["shard_map"] = lambda: collectives.compressed_mean_tree_shardmap(
+            spec, seed, tree, mesh, device=cs.DEV)
+        fns["shard_map_owners"] = lambda: collectives.compressed_mean_tree_shardmap(
+            spec, seed, tree, mesh, device=cs.DEV, ownership=True)
+        fns["shard_map_overlap"] = lambda: collectives.compressed_mean_tree_shardmap(
+            spec, seed, tree, mesh, device=cs.DEV, **overlap)
+        fns["gspmd"] = lambda: collectives.compressed_mean_tree(
+            spec, seed, tree, collectives.dme_shardings(mesh), device=cs.DEV)
+    out = {}
+    for name, fn in fns.items():
+        for _ in range(2):
+            fn()
+        out[name] = [cs._timed_round(fn)[1] for _ in range(5)]
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act) as prof:
+        fns["local_overlap"]()
+        torch.cuda.synchronize()
+    out["local_overlap_kernel_launches"] = sum(
+        ev.count for ev in prof.key_averages() if ev.key == "cudaLaunchKernel")
+    cs.log(f"dist_timing [{smi}] " + json.dumps(out))
+    return out
+
+
 def main(names: list) -> int:
     if not torch.cuda.is_available():
         print("chip_phases: no CUDA device", file=sys.stderr)
@@ -63,6 +109,8 @@ def main(names: list) -> int:
         "flash_d128": lambda smi: cs.phase_flash_timing_d128(state["moe"]["launches"],
                                                              cs.Errors()),
         "gc_probe": gc_probe,
+        "dist": lambda smi: cs.phase_dist(cs.gradient_tree(), smi),
+        "dist_timing": dist_timing,
     }
     for name in names:
         t0 = time.perf_counter()
