@@ -106,6 +106,16 @@ result):
    SRHT ops and equal to the launches, ``kernels/decode_route`` fused once
    a round, ``kernels/cg_iters`` one sample a decode, its CG steps launched
    within each count rounded up to the host check's 8;
+   then hierarchical rounds (``phase_hier``, lines ``hier (a)``-``hier
+   (d)``, runtime/) on the same dme task through ``runtime.workers``'
+   ``round_worker``, 3 sync rounds: (a) one pod bitwise the flat rounds;
+   (b) two pods in this process: ``dcn_bytes`` each round the model's
+   (``cross_pod_traffic``: 1,032,806,400), mse below Eq. 1, K1 x 4, K3 x 2
+   and 2-16 CG steps a round; (c) two pods over two processes on the card
+   (``runtime.spawn_local``, their records through process 0's TCPStore):
+   each process's History bitwise (b)'s, K1 x 2, K3 x 1 and 1-8 CG steps a
+   round each, the pickled record bytes and the exchange's seconds; (d)
+   ``fl.run --task dme --pods 2 --hosts 2`` at 8,388,608 values exits 0;
    then the training path (``phase_train``, lines ``train (a)``-``train
    (c)``): (a) musicgen-medium at full width, 24 of its 48 layers
    (685,843,968 float32 parameters, bf16 compute, remat by block, the dense
@@ -135,6 +145,21 @@ result):
    estimator, optimizer, timing, launch counts and profiled step as (a);
    every client gradient leaf finite in every step; one step's update with
    the kernels against the plain versions within 1e-6;
+   then the GPipe schedule (``phase_pipeline``, lines ``pipeline (a)``,
+   ``pipeline (b)``) on (d)'s cell: (a) one NCCL rank,
+   ``pipeline_stages=1`` (the full schedule on one stage: its hops, the
+   NCCL broadcasts and the stage-gradient all-reduce), 4 microbatches, a
+   first and a warm step in bf16 and one in float32, each beside the step
+   without a pipeline: losses within 2e-5, the float32 gradient entering
+   AdamW within relative L2 1e-5, the float32 update that AdamW at eps 1e-6
+   makes of both steps' gradients within 2e-5, the update gaps recorded
+   beside a witness's (the step without a pipeline against itself with the
+   rows reversed), K1 x 4, K3 x 1 and 1-64 CG steps a step;
+   (b) two gloo ranks on the card (NCCL refuses two a card),
+   ``pipeline_stages=2`` (12 blocks a stage), a first and a warm step: each
+   rank's update bitwise (a)'s bf16 one or within 2e-5 of it, the ranks'
+   equal, each rank's ``dist/host_staged_bytes``, wall ms (two processes on
+   one card, not a multi-card time), peak memory and launches;
 5. profile one more shared-randomness round (torch.profiler): device time
    by kernel against the round's wall time; every K1, K3 and CG step launch
    in it must be the register-resident butterfly kernel, by name;
@@ -1545,6 +1570,412 @@ def phase_dist(tree: dict, smi: str) -> dict:
     log(f"dist: {out['seconds']:.1f} s")
     return out
 
+
+# ---------------------------------------- phase_pipeline (the GPipe schedule)
+
+PIPE_MICRO = 4      # microbatches a client's batch of TRAIN_BATCH splits into
+# tests/test_pipeline.py:117-118's bound, PIPE_TOL: the loss within it of
+# the step without a pipeline, (b)'s update within it of (a)'s, and (a)'s
+# float32 update within it of the step without a pipeline under AdamW at
+# PIPE_EPS, the eps the CPU tests give AdamW (tests/test_torch_train.py):
+# at the cell's eps of 1e-8 AdamW's first step, lr * g / (|g| + eps), turns
+# the rounding of a near-zero g into update gaps of up to 2 lr. So (a)
+# replays AdamW at PIPE_EPS on both steps' gradients, and holds the float32
+# gradient entering AdamW within the port's float32 tolerance
+# PIPE_GRAD_RTOL (relative L2). Its witness is the step without a pipeline
+# against itself with every client's rows in reverse order: the same sum
+# in another order, its update gaps at both eps printed beside (a)'s.
+PIPE_TOL, PIPE_GRAD_RTOL, PIPE_EPS = 2e-5, 1e-5, 1e-6
+PIPE_RANKS = 2      # (b): stages, one gloo rank each on the one card (12 blocks a stage)
+PIPE_JOIN_S = 420   # (b): the spawned ranks' deadline
+PIPE_KERNELS = ("fwht", "srht_decode_sum", "srht_cg_step")
+
+
+class _GradRecorder:
+    """An optimizer that keeps the gradient leaves of its last update."""
+
+    def __init__(self, inner):
+        self.inner, self.grads = inner, None
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, *args):
+        self.grads, self.args = grads, args
+        return self.inner.update(grads, *args)
+
+    def replay(self, opt) -> list:
+        """The parameters ``opt`` makes of the last update's gradient and
+        state."""
+        return _leaves(opt.update(self.grads, *self.args)[0])
+
+
+def _pipe_cell(mesh=None, stages: int = 0, dtype: str = "bfloat16") -> tuple:
+    """(config, params, state, batch, step) of the mamba2-130m DME cell of
+    ``phase_train`` (d) (full width, 4 clients x 4 x 1024 tokens, remat by
+    block) in the compute ``dtype``, pipelined over ``mesh``'s ``pipe`` axis
+    when ``stages``; ``step.grads`` is the last step's gradient (the
+    clients' decoded mean) that entered AdamW."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = configs.preset_config(TRAIN_MAMBA_ARCH, "full").replace(dtype=dtype)
+    params = init_params(cfg, 0, device=DEV)
+    opt = _GradRecorder(_train_opt())
+    state = init_train_state(cfg, opt, params, _train_spec(), N_CLIENTS)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_MAMBA_SEQ, batch=TRAIN_BATCH,
+                        n_clients=N_CLIENTS, seed=0).batch_at(0, DEV)
+    step = make_train_step(cfg, opt, dme_spec=_train_spec(), device=DEV, mesh=mesh,
+                           pipeline_stages=stages,
+                           pipeline_microbatches=PIPE_MICRO if stages else 0)
+    step.grads, step.replay = lambda: _leaves(opt.grads), opt.replay
+    return cfg, params, state, batch, step
+
+
+def _pipe_run(step, params, state, batch, warm: bool = True) -> dict:
+    """A first and (``warm``) a warm call of ``step`` from the same state:
+    the last call's wall ms, launches, host-staged bytes and peak memory,
+    and its new parameters."""
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+
+    first_ms = _timed_round(lambda: step(params, state, batch, 0))[1] if warm else None
+    obs.enable()
+    obs.reset()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()  # the warm call's window opens here
+    (new, _, metrics), ms = _timed_round(lambda: step(params, state, batch, 0))
+    launches = dict(ops.launch_counts())  # ... and closes here
+    staged = obs.snapshot()["counters"].get("dist/host_staged_bytes", 0)
+    obs.disable()
+    obs.reset()
+    return {"new": _leaves(new), "grads": step.grads(), "wall_ms": ms, "first_wall_ms": first_ms,
+            "new_eps": step.replay(_train_opt(eps=PIPE_EPS)),
+            "loss": float(metrics["loss"]), "launches": launches,
+            "host_staged_bytes": int(staged),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _pipe_launch_check(tag: str, launches: dict) -> None:
+    launched = dict(launches)
+    steps = launched.pop("srht_cg_step", 0)
+    lo, hi = TRAIN_CG_STEPS
+    if launched != {"fwht": N_CLIENTS, "srht_decode_sum": 1} or not lo <= steps <= hi:
+        fail(f"({tag}) the pipelined step launched {launches}: not K1 x {N_CLIENTS}, K3 x 1 and "
+             f"{lo}-{hi} CG steps")
+
+
+def _max_gap(a: list, b: list) -> float:
+    return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+
+def _pipe_one_rank(smi: str, ref_path: str) -> dict:
+    """(a) one NCCL rank, ``pipeline_stages=1``, 4 microbatches: in bf16
+    beside the step without a pipeline (its update saved to ``ref_path`` for
+    (b)), and once more in float32, where the gradient must be within
+    PIPE_GRAD_RTOL, and the update under AdamW at PIPE_EPS within PIPE_TOL,
+    of the step without a pipeline. The witness, in both dtypes: the step
+    without a pipeline against itself with the rows reversed."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding
+
+    mesh = sharding.make_mesh((1,), ("pipe",), device=DEV)
+    if dist.get_backend() != "nccl":
+        fail(f"(a) the one-rank pipe axis runs on {dist.get_backend()}, not NCCL")
+    row = {"stages": 1, "microbatches": PIPE_MICRO, "backend": "nccl", "eps_replayed": PIPE_EPS}
+    for dtype in ("bfloat16", "float32"):
+        _, params, state, batch, plain_step = _pipe_cell(dtype=dtype)
+        warm = dtype == "bfloat16"  # the timed cell; float32 checks the update alone
+        plain = _pipe_run(plain_step, params, state, batch, warm)
+        witness = _pipe_run(plain_step, params, state,
+                            {k: v.flip(1) for k, v in batch.items()}, warm=False)
+        piped = _pipe_run(_pipe_cell(mesh, 1, dtype)[-1], params, state, batch, warm)
+        row[dtype] = {
+            "grad_rel_gap_vs_no_pipeline": rel_l2(_flat(piped["grads"]), _flat(plain["grads"])),
+            "max_abs_update_gap_vs_no_pipeline": _max_gap(piped["new"], plain["new"]),
+            "max_abs_update_gap_vs_no_pipeline_eps": _max_gap(piped["new_eps"],
+                                                              plain["new_eps"]),
+            "update_rel_gap_vs_no_pipeline": _update_gap(params, piped["new"], plain["new"]),
+            "update_bitwise_no_pipeline": all(torch.equal(a, b) for a, b in
+                                              zip(piped["new"], plain["new"])),
+            "witness_rows_reversed": {
+                "grad_rel_gap": rel_l2(_flat(witness["grads"]), _flat(plain["grads"])),
+                "max_abs_update_gap": _max_gap(witness["new"], plain["new"]),
+                "max_abs_update_gap_eps": _max_gap(witness["new_eps"], plain["new_eps"]),
+                "loss": witness["loss"]},
+            "loss": [piped["loss"], plain["loss"]],
+            **{k: piped[k] for k in ("wall_ms", "first_wall_ms", "launches",
+                                     "host_staged_bytes", "peak_gb")},
+            "no_pipeline": {k: plain[k] for k in ("wall_ms", "first_wall_ms", "peak_gb")}}
+        log(f"pipeline (a) {dtype} [{smi}] " + json.dumps(row[dtype]))
+        _pipe_launch_check("a", piped["launches"])
+        if not abs(piped["loss"] - plain["loss"]) <= PIPE_TOL:
+            fail(f"(a) {dtype}: the one-stage pipelined loss {piped['loss']} is not within "
+                 f"{PIPE_TOL} of the step without a pipeline ({plain['loss']})")
+        if warm:
+            torch.save([t.cpu() for t in piped["new"]], ref_path)
+        del piped, plain, witness, params, state, plain_step
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    f32 = row["float32"]
+    if not f32["grad_rel_gap_vs_no_pipeline"] <= PIPE_GRAD_RTOL:
+        fail(f"(a) the one-stage pipelined gradient in float32 differs from the step without a "
+             f"pipeline by {f32['grad_rel_gap_vs_no_pipeline']} (relative L2; limit "
+             f"{PIPE_GRAD_RTOL})")
+    if not f32["max_abs_update_gap_vs_no_pipeline_eps"] <= PIPE_TOL:
+        fail(f"(a) under AdamW at eps {PIPE_EPS} the one-stage pipelined update in float32 "
+             f"differs from the step without a pipeline by "
+             f"{f32['max_abs_update_gap_vs_no_pipeline_eps']} (limit {PIPE_TOL})")
+    row["launches"] = row["bfloat16"]["launches"]
+    return row
+
+
+def _pipe_rank(rank: int, world: int, store: str, out_dir: str, ref_path: str) -> None:
+    """(b) one stage of PIPE_RANKS on the card over gloo: the pipelined DME
+    step, a first and a warm call, against (a)'s update."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        mesh = sharding.make_mesh((world,), ("pipe",), device=DEV)
+        _, params, state, batch, step = _pipe_cell(mesh, world)
+        run = _pipe_run(step, params, state, batch)
+        ref = [t.to(DEV) for t in torch.load(ref_path)]
+        out = {k: run[k] for k in ("wall_ms", "first_wall_ms", "loss", "launches",
+                                   "host_staged_bytes", "peak_gb")}
+        out.update(bitwise_a=all(torch.equal(a, b) for a, b in zip(run["new"], ref)),
+                   max_abs_gap_a=_max_gap(run["new"], ref), sha256=_sha256(_flat(run["new"])))
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _pipe_two_ranks(smi: str, ref_path: str, tmp: str) -> dict:
+    """(b) PIPE_RANKS processes on the one card over gloo (NCCL refuses two
+    ranks on one card), ``pipeline_stages=2``: every rank's update bitwise
+    (a)'s or within PIPE_TOL of it. Two processes on one card: not a
+    multi-card time."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_pipe_rank, args=(PIPE_RANKS, os.path.join(tmp, "store"), tmp,
+                                               ref_path),
+                             nprocs=PIPE_RANKS, join=False, start_method="spawn")
+    deadline = t0 + PIPE_JOIN_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.perf_counter())):
+            if time.perf_counter() >= deadline:
+                fail(f"(b) the {PIPE_RANKS} stages did not finish in {PIPE_JOIN_S} s")
+    except mp.ProcessRaisedException as e:
+        fail(f"(b) a stage failed: {e}")
+    except mp.ProcessExitedException as e:
+        fail(f"(b) a stage exited: {e}")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    ranks = []
+    for r in range(PIPE_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    out = {"stages": PIPE_RANKS, "microbatches": PIPE_MICRO, "backend": "gloo",
+           "device": "cuda:0 (all ranks)", "seconds_with_spawn": time.perf_counter() - t0,
+           "note": "two processes share one card: not a multi-card time", "ranks": ranks}
+    log(f"pipeline (b) [{smi}] " + json.dumps(out))
+    for r, rk in enumerate(ranks):
+        if not (rk["bitwise_a"] or rk["max_abs_gap_a"] <= PIPE_TOL):
+            fail(f"(b) stage {r}'s update differs from (a)'s by {rk['max_abs_gap_a']}")
+        if rk["sha256"] != ranks[0]["sha256"]:
+            fail(f"(b) stage {r}'s update is not stage 0's")
+        if rk["host_staged_bytes"] <= 0:
+            fail(f"(b) stage {r}: gloo's hops were not staged through the host")
+        _pipe_launch_check("b", rk["launches"])
+    return out
+
+
+def phase_pipeline(smi: str) -> dict:
+    """The GPipe schedule (``make_train_step(pipeline_stages=)``) on
+    mamba2-130m at full width: (a) one stage on one NCCL rank against the
+    step without a pipeline, (b) two stages on two gloo ranks on the card
+    against (a). -> the launches of both."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "a_update.pt")
+        one = _pipe_one_rank(smi, ref_path)
+        torch.cuda.empty_cache()
+        two = _pipe_two_ranks(smi, ref_path, tmp)
+    launches = dict(one["launches"])
+    for rk in two["ranks"]:
+        for name, n in rk["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    out = {"a": one, "b": two, "launches": launches, "seconds": time.perf_counter() - t0}
+    log(f"pipeline: {out['seconds']:.1f} s; launches {launches}")
+    return out
+
+
+# ------------------------------------- phase_hier (the hierarchical runtime)
+
+HIER_ROUNDS = 3
+HIER_JOIN_S = 600   # (c), (d): the spawned processes' deadline
+HIER_CLI_DIM = 8 * 1024 * 1024  # (d): the CLI's dme width, 8,192 chunks
+
+
+def _hier_spec(**rounds) -> dict:
+    """The FL dme task at the estimator's full width, as a worker spec."""
+    return {"task": "dme", "task_kw": {"n_clients": N_CLIENTS, "d": FL_D, "rho": RHO, "seed": 0},
+            "stages": [("rand_proj_spatial", {"k": K, "d_block": D_BLOCK, "transform": "avg"})],
+            "cohort": {"n_clients": N_CLIENTS}, "rounds": {"n_rounds": HIER_ROUNDS, **rounds}}
+
+
+def _hier_worker(ctx, spec: dict) -> dict:
+    """``round_worker`` with the kernel launches of its rounds and the
+    exchange's pickled bytes and seconds."""
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import workers
+
+    obs.enable()
+    obs.reset()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()  # the rounds' window opens here
+    out = workers.round_worker(ctx, spec)
+    torch.cuda.synchronize()
+    out["launches"] = dict(ops.launch_counts())  # ... and closes here
+    snap = obs.snapshot()
+    out["xpod_bytes"] = int(snap["counters"].get("runtime/xpod_bytes", 0))
+    out["xpod_seconds"] = snap["histograms"].get("runtime/xpod_seconds")
+    out["xpod_wait_seconds"] = snap["histograms"].get("runtime/xpod_wait_seconds")
+    obs.disable()
+    obs.reset()
+    return out
+
+
+def _hier_local(task, spec: dict) -> dict:
+    """``round_worker``'s rounds in this process, on ``task`` (built once,
+    as the worker builds it from ``spec``): the History arrays, the rounds'
+    wall s and kernel launches."""
+    from repro_torch.fl import Cohort, RoundConfig, run_rounds
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import workers
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()  # the rounds' window opens here
+    t0 = time.perf_counter()
+    _, hist = run_rounds(task, workers.build_pipeline(spec["stages"]), Cohort(**spec["cohort"]),
+                         RoundConfig(**spec["rounds"]), device=DEV)
+    torch.cuda.synchronize()
+    out = workers.history_arrays(hist)
+    out.update(wall_s=time.perf_counter() - t0, launches=dict(ops.launch_counts()))
+    return out
+
+
+HIER_COLUMNS = ("metric", "mse", "mse_pop", "bytes", "n_survivors", "n_sampled", "n_stale",
+                "stale_bytes", "intra_pod_bytes", "dcn_bytes", "rho_hat")  # history_arrays'
+
+
+def _bitwise_history(a: dict, b: dict) -> bool:
+    return all(np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes() for k in HIER_COLUMNS)
+
+
+def phase_hier(smi: str, task) -> dict:
+    """Hierarchical FL rounds (``RoundConfig(hierarchy="hier")``, runtime/)
+    on the dme task at the estimator's full width (4 clients x 129,100,224
+    values, rho 0.9, Rand-Proj-Spatial k 64 / 1024 / avg, 3 sync rounds):
+    (a) one pod bitwise the flat rounds; (b) two pods in this process, the
+    cross-pod ledger the model's and mse below Rand-k's Eq. 1; (c) two pods
+    over two processes on the card (``spawn_local``), each History bitwise
+    (b)'s; (d) the CLI's ``--pods 2 --hosts 2``. ``task`` is ``fl_task()``,
+    which ``round_worker`` builds from ``_hier_spec()``. -> the launches of
+    (b) and (c)."""
+    from repro_torch.core import codec
+    from repro_torch.fl import Cohort
+    from repro_torch.fl import run as fl_run
+    from repro_torch.runtime import PodPlan, cross_pod_traffic, spawn_local
+
+    t0 = time.perf_counter()
+    xs = task.aux["xs"]
+    sumsq = sum(float((xs[i].double() ** 2).sum()) for i in range(N_CLIENTS))
+    randk_mse = (D_BLOCK / K - 1.0) * sumsq / N_CLIENTS**2  # Eq. 1
+    del xs
+    flat = _hier_local(task, _hier_spec())
+    one_pod = _hier_local(task, _hier_spec(hierarchy="hier", pods=1))
+    a = {"bitwise_flat": _bitwise_history(one_pod, flat), "mse": one_pod["mse"].tolist(),
+         "wall_s": {"flat": flat["wall_s"], "hier_1pod": one_pod["wall_s"]},
+         "dcn_bytes": one_pod["dcn_bytes"].tolist()}
+    log(f"hier (a) one pod against flat [{smi}] " + json.dumps(a))
+    if not a["bitwise_flat"]:
+        fail("(a) the one-pod hierarchical rounds are not the flat rounds, bitwise")
+    two = _hier_local(task, _hier_spec(hierarchy="hier", pods=2))
+    pipe = codec.as_pipeline(codec.RandProjSpatial(k=K, d_block=D_BLOCK, transform="avg"))
+    n_chunks = -(-FL_D // D_BLOCK)
+    model = cross_pod_traffic(pipe, Cohort(n_clients=N_CLIENTS), np.arange(N_CLIENTS),
+                              PodPlan(N_CLIENTS, 2), n_chunks)
+    b = {"mse": two["mse"].tolist(), "randk_expected_mse": randk_mse,
+         "mse_flat": flat["mse"].tolist(), "dcn_bytes": two["dcn_bytes"].tolist(),
+         "dcn_model": model, "bytes": two["bytes"].tolist(), "launches": two["launches"],
+         "wall_s": two["wall_s"]}
+    log(f"hier (b) two pods, one process [{smi}] " + json.dumps(b))
+    if b["dcn_bytes"] != [model["dcn_bytes"]] * HIER_ROUNDS or model["dcn_bytes"] <= 0:
+        fail(f"(b) dcn_bytes {b['dcn_bytes']} are not the model's {model['dcn_bytes']}")
+    if not max(b["mse"]) < randk_mse:
+        fail(f"(b) mse {b['mse']} is not below Rand-k's Eq. 1 ({randk_mse})")
+    launched = dict(two["launches"])
+    steps = launched.pop("srht_cg_step", 0)
+    if launched != {"fwht": N_CLIENTS * HIER_ROUNDS, "srht_decode_sum": 2 * HIER_ROUNDS} or \
+            not 2 * HIER_ROUNDS <= steps <= 16 * HIER_ROUNDS:
+        fail(f"(b) {HIER_ROUNDS} rounds launched {two['launches']}: not K1 x {N_CLIENTS}, "
+             "K3 x 2 and 2-16 CG steps a round")
+    del flat, one_pod, task
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    procs = spawn_local(_hier_worker, 2, args=(_hier_spec(hierarchy="hier", pods=2),),
+                        timeout_s=HIER_JOIN_S)
+    c = {"seconds_with_spawn": time.perf_counter() - t1,
+         "bitwise_b": [_bitwise_history(p, two) for p in procs],
+         "launches": [p["launches"] for p in procs],
+         "pickled_record_bytes": [p["xpod_bytes"] for p in procs],
+         "exchange_seconds": [p["xpod_seconds"] for p in procs],
+         "exchange_wait_seconds": [p["xpod_wait_seconds"] for p in procs],
+         "wall_s": [p["wall_s"] for p in procs],
+         "note": "two processes share one card and exchange through the host's store"}
+    log(f"hier (c) two pods over two processes [{smi}] " + json.dumps(c))
+    if not all(c["bitwise_b"]):
+        fail(f"(c) the processes' Histories are not (b)'s, bitwise: {c['bitwise_b']}")
+    for pid, launches in enumerate(c["launches"]):
+        launched = dict(launches)
+        steps = launched.pop("srht_cg_step", 0)
+        if launched != {"fwht": 2 * HIER_ROUNDS, "srht_decode_sum": HIER_ROUNDS} or \
+                not HIER_ROUNDS <= steps <= 8 * HIER_ROUNDS:
+            fail(f"(c) process {pid} launched {launches}: not K1 x 2, K3 x 1 and 1-8 CG "
+                 "steps a round (its own pod)")
+    t1 = time.perf_counter()
+    code = fl_run.main(["--task", "dme", "--pods", "2", "--hosts", "2", "--clients",
+                        str(N_CLIENTS), "--dim", str(HIER_CLI_DIM), "--k", str(K),
+                        "--d-block", str(D_BLOCK), "--rounds", str(HIER_ROUNDS)])
+    d = {"exit_code": code, "seconds": time.perf_counter() - t1, "dim": HIER_CLI_DIM}
+    log(f"hier (d) fl.run --pods 2 --hosts 2 [{smi}] " + json.dumps(d))
+    if code != 0:
+        fail(f"(d) the CLI exited {code}")
+    launches = dict(two["launches"])
+    for p in c["launches"]:
+        for name, n in p.items():
+            launches[name] = launches.get(name, 0) + n
+    out = {"a": a, "b": b, "c": c, "d": d, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    log(f"hier: {out['seconds']:.1f} s; launches {launches}")
+    return out
+
 # ----------------------------------------------------------- phase_fl (FL)
 
 FL_D = MAMBA2_130M_PARAMS   # the dme task's width: mamba2-130m's parameter count
@@ -1943,20 +2374,26 @@ def _fl_card_vs_cpu(smi: str) -> dict:
     return gaps
 
 
-def phase_fl(smi: str) -> dict:
-    """The federated round driver on the card: (a)-(c) at full width on the
-    dme task, (d) temporal on drift, (e) the CLI, (f) the card against the
-    CPU. Fatal on any failed check."""
+def fl_task():
+    """The dme task at the estimator's full width that ``phase_fl`` and
+    ``phase_hier`` run (built once for both)."""
     from repro_torch.fl import get_task
 
-    from repro_torch.core import beta as beta_lib
-
-    start = t0 = time.perf_counter()
+    t0 = time.perf_counter()
     task = get_task("dme", device=DEV, n_clients=N_CLIENTS, d=FL_D, rho=RHO, seed=0)
     torch.cuda.synchronize()
     log(f"fl: dme task of {N_CLIENTS} x {FL_D} values built in "
         f"{time.perf_counter() - t0:.1f} s (host numpy, then one copy to the card)")
-    t0 = time.perf_counter()  # the banks of every survivor count, outside the timed rounds
+    return task
+
+
+def phase_fl(smi: str, task) -> dict:
+    """The federated round driver on the card: (a)-(c) at full width on the
+    dme task ``task`` (``fl_task()``), (d) temporal on drift, (e) the CLI,
+    (f) the card against the CPU. Fatal on any failed check."""
+    from repro_torch.core import beta as beta_lib
+
+    start = t0 = time.perf_counter()  # the banks of every survivor count, outside the timed rounds
     for n in range(1, N_CLIENTS + 1):
         beta_lib.srht_eig_bank(n, K, D_BLOCK, device=DEV)
     torch.cuda.synchronize()
@@ -2006,10 +2443,10 @@ def _train_spec(use_kernel: str = "auto"):
                        use_kernel=use_kernel)
 
 
-def _train_opt():
+def _train_opt(**kw):
     from repro_torch.optim import AdamW
 
-    return AdamW(lr=3e-3, warmup_steps=20)  # the training CLI's
+    return AdamW(lr=3e-3, warmup_steps=20, **kw)  # the training CLI's
 
 
 class _ClockedOptimizer:
@@ -3282,8 +3719,12 @@ def main() -> int:
     phase_codec(tree, main_path)
     del main_path
     dist_launches = phase_dist(tree, smi)["a"]["launches"]
-    phase_fl(smi)
+    task = fl_task()
+    phase_fl(smi, task)
+    hier_launches = phase_hier(smi, task)["launches"]
+    del task
     phase_train(smi)
+    pipeline_launches = phase_pipeline(smi)["launches"]
     phase_profile(tree)
     del tree
     phase_small_reference()
@@ -3296,8 +3737,11 @@ def main() -> int:
     kernels += phase_flash_timing(
         flash_inputs, {**serve_out["launches"], **serve_out["launches_f32_serving"]}, errs)
     kernels.append(phase_flash_timing_d128(moe_serve["launches"], errs))
-    for row in kernels:  # the launches of phase_dist (a)'s five mesh routes
+    for row in kernels:  # the launches of phase_dist (a)'s five mesh routes,
+        # phase_hier's (b) and (c) and phase_pipeline's (a) and (b)
         row["launches_dist"] = int(dist_launches.get(row["name"], 0))
+        row["launches_hier"] = int(hier_launches.get(row["name"], 0))
+        row["launches_pipeline"] = int(pipeline_launches.get(row["name"], 0))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -31,9 +31,16 @@ holds every client's vector and the same ``History``. On "shard_map" a rank
 hands the collective its own clients' rows (n_clients must divide over the
 client axes; otherwise the round takes the "gspmd" route). Per-client
 temporal memories compose with both: the collectives move deltas against
-each client's memory, and the server mirrors the memory updates. The
-hierarchical per-pod aggregation (``hierarchy="hier"``, ROADMAP A.10) is
-not ported and raises NotImplementedError before any work is done.
+each client's memory, and the server mirrors the memory updates.
+
+Hierarchical aggregation (``RoundConfig(hierarchy="hier", pods=P)``,
+``runtime/``): each pod's server decodes only its cohort against its own
+``ServerState`` (in async mode also its stale group), the pods' records
+cross the runtime's processes (``runtime.comms.CrossPodExchange``) and are
+combined in ascending pod order, and ``History.dcn_bytes`` ledgers the
+modelled cross-pod bytes. Bitwise the flat path at one pod; with
+``cfg.runtime`` naming several processes each decodes only the pods it
+owns, and every process holds the same History.
 
 Async rounds (``RoundConfig(async_rounds=True)``): the server decodes
 whoever reported by the deadline and moves on. Stragglers' encodes (of THIS
@@ -84,7 +91,7 @@ from ..core.codec import (
 )
 from ..dist import collectives
 from . import server as server_lib
-from .clients import Cohort
+from .clients import Cohort, Participation
 from .tasks import Task
 
 
@@ -112,10 +119,13 @@ class RoundConfig:
     # client shards on gspmd); the shard_map backend always uses the mesh's
     # client shards (the all_to_all routing must match the ranks)
     n_owners: int = 0
-    # hierarchical (per-pod) aggregation: "hier" is ROADMAP A.10
+    # hierarchical (per-pod) aggregation: "hier" decodes pod-local (each
+    # pod's server sees only its cohort, carries its own online R estimate)
+    # then combines d-sized estimates across pods. Bitwise "flat" at pods=1.
     hierarchy: str = "flat"     # flat | hier
     pods: int = 1               # pod count under hierarchy="hier"
-    # a multi-process runtime context (ROADMAP A.10; ignored under "flat")
+    # runtime.RuntimeContext for multi-process execution (None = all pods
+    # decoded in this process; ignored under hierarchy="flat")
     runtime: Any = None
 
 
@@ -157,8 +167,8 @@ class History:
     # modelled server-side receive traffic of the round's decode, summed over
     # shards (dist.collectives.intra_pod_traffic)
     intra_pod_bytes: list = dataclasses.field(default_factory=list)
-    # modelled cross-pod traffic of the hierarchical route: all zeros under
-    # hierarchy="flat", the only one ported
+    # modelled cross-pod traffic of the hierarchical route (runtime.comms.
+    # cross_pod_traffic); all zeros under hierarchy="flat"
     dcn_bytes: list = dataclasses.field(default_factory=list)
     rho_hat: list = dataclasses.field(default_factory=list)  # tracker output (or nan)
     client_state: Any = None  # final stacked ClientState (None if stateless)
@@ -567,6 +577,80 @@ def _decode_stale(pipe, buf: _StaleBuffer, admit: np.ndarray, cohort,
     return mean
 
 
+def _hier_round(pipe, rkey, xs_chunks, part, cohort, hier, cfg, cstate, side,
+                mem_snapshot, stale_buf, n_chunks):
+    """One hierarchical round: per OWNED pod, a pod-local fresh sub-decode
+    against that pod's own ``ServerState`` (followed by that pod's stale
+    sub-decode in async mode), then the cross-pod record exchange and the
+    deterministic ascending-pod combine.
+
+    Every process runs this with the same global inputs (task vectors,
+    participation and stale buffer are deterministic replicas) but decodes
+    only its owned pods; after ``exchange`` all processes hold identical
+    records and reduce them identically: there is no root process. A pod's
+    record carries its decode as a tensor on the round's device; only the
+    cross-process exchange takes it through the host, bit for bit.
+
+    Returns (mean_chunks, nbytes, coded, intra_pod, dcn_info, rho_round,
+    cstate, n_stale)."""
+    from ..runtime import comms as comms_lib
+    from ..runtime import hierarchy as hier_lib
+
+    plan = hier.plan
+    admit = np.asarray([], dtype=part.survivors.dtype)
+    if cfg.async_rounds and stale_buf is not None and cfg.staleness >= 1:
+        admit = np.setdiff1d(stale_buf.ids, part.survivors)
+
+    owned = {}
+    for p in hier.owned_pods:
+        part_p = Participation(sampled=plan.restrict(part.sampled, p),
+                               survivors=plan.restrict(part.survivors, p))
+        rec = {"n": part_p.n_survivors, "mean": None, "bytes": 0, "coded": 0,
+               "intra": 0, "rho": None, "n_admit": 0, "stale_mean": None}
+        if part_p.n_survivors:
+            with obs.span("fl", f"pod{p}", track=f"pod{p}", pod=p,
+                          survivors=part_p.n_survivors):
+                dec, nb, coded_p, intra, rho_p, cstate = _decode_round(
+                    pipe, rkey, xs_chunks, part_p, cohort, hier.pod_states[p], cfg, cstate,
+                    side, mem_snapshot,
+                )
+            obs.count("runtime", "pod.decodes", pod=p)
+            rec.update(mean=dec, bytes=int(nb), coded=int(coded_p), intra=int(intra),
+                       rho=rho_p)
+        admit_p = plan.restrict(admit, p)
+        if len(admit_p):
+            stale_p = _decode_stale(pipe, stale_buf, admit_p, cohort, hier.pod_states[p])
+            rec.update(n_admit=int(len(admit_p)), stale_mean=stale_p)
+        owned[p] = rec
+
+    records = hier.exchange.exchange(owned)
+    # remote pods' wire bytes still land on this process's trace, so the
+    # byte-equality gate (trace sum == History ledger) holds per process
+    owned_set = set(hier.owned_pods)
+    remote_bytes = sum(r["bytes"] for q, r in records.items() if q not in owned_set)
+    obs.marker("fl", "client_encode", track="client_encode",
+               bytes=int(remote_bytes), remote=True, hierarchy="hier")
+
+    mean_chunks, _, _ = hier_lib.combine_records(records)
+    nbytes = sum(r["bytes"] for r in records.values())
+    coded = sum(r["coded"] for r in records.values())
+    intra = sum(r["intra"] for r in records.values())
+    rho_round = hier_lib.combine_rho(records)
+
+    stale_mean, n_stale, _ = hier_lib.combine_records(records, key="stale_mean",
+                                                      count_key="n_admit")
+    stale_pods = sum(1 for q, r in records.items() if q != 0 and r["n_admit"] > 0)
+    dcn_info = comms_lib.cross_pod_traffic(
+        pipe, cohort, part.survivors, plan, n_chunks, stale_pods=stale_pods,
+        hierarchy="hier",
+    )
+    if n_stale:
+        mean_chunks = server_lib.admit_stale(
+            mean_chunks, part.n_survivors, stale_mean, n_stale, cfg.stale_weight,
+        )
+    return mean_chunks, nbytes, coded, intra, dcn_info, rho_round, cstate, n_stale
+
+
 def _advance_straggler_state(pipe, key, xs_chunks, stragglers, cohort, cstate):
     """Async mode: stragglers DID encode this round (late), so their
     client-held temporal memories advance exactly as a survivor's would;
@@ -652,9 +736,6 @@ def _validate_cfg(pipe, cfg):
                 "model ONE pod's mesh; cross-pod transport is "
                 "runtime.comms)"
             )
-        raise NotImplementedError(
-            "hierarchy='hier' (per-pod aggregation over runtime/) is not ported yet "
-            "(ROADMAP A.10)")
     if cfg.backend not in ("local", "gspmd", "shard_map"):
         raise ValueError(f"unknown backend {cfg.backend!r}")
 
@@ -705,6 +786,16 @@ def run_rounds(task: Task, spec, cohort: Cohort | None = None,
     cstate = cohort.init_state(pipe, n_chunks, device=dev)
     stale_buf: _StaleBuffer | None = None
 
+    hier = None
+    if cfg.hierarchy == "hier":
+        # runtime.hierarchy imports fl.server, so the module edge points
+        # runtime -> fl at import time, fl -> runtime only at call time
+        from ..runtime import hierarchy as hier_lib
+
+        hier = hier_lib.HierarchicalAggregator(
+            hier_lib.PodPlan(cohort.n_clients, cfg.pods), ctx=cfg.runtime
+        )
+
     for t in range(cfg.n_rounds):
         tr = obs.current_tracer()
         if tr is not None:
@@ -718,12 +809,20 @@ def run_rounds(task: Task, spec, cohort: Cohort | None = None,
         del vecs
         side, mem_snapshot = _side_and_memory(pipe, cfg, state_srv, cstate)
 
-        (mean_chunks, nbytes, coded, intra_pod, rho_round,
-         cstate) = _decode_round(
-            pipe, rkey, xs_chunks, part, cohort, state_srv, cfg, cstate,
-            side, mem_snapshot,
-        )
-        dcn = 0
+        if hier is not None:
+            (mean_chunks, nbytes, coded, intra_pod, dcn_info, rho_round,
+             cstate, n_stale) = _hier_round(
+                pipe, rkey, xs_chunks, part, cohort, hier, cfg, cstate,
+                side, mem_snapshot, stale_buf, n_chunks,
+            )
+            dcn = dcn_info["dcn_bytes"]
+        else:
+            (mean_chunks, nbytes, coded, intra_pod, rho_round,
+             cstate) = _decode_round(
+                pipe, rkey, xs_chunks, part, cohort, state_srv, cfg, cstate,
+                side, mem_snapshot,
+            )
+            dcn = 0
         # intra-pod and DCN traffic are modelled tier quantities, deliberately
         # keyed ``bytes_intra_pod`` / ``bytes_dcn`` so they never enter the
         # wire-ledger sum
@@ -734,10 +833,13 @@ def run_rounds(task: Task, spec, cohort: Cohort | None = None,
         # ---- staleness-1 admission: last round's late payloads land now.
         # EVERY arrival is ledgered (it crossed the wire), but a client that
         # ALSO reported fresh this round supersedes its own stale payload,
-        # so only the non-superseded set enters the decode.
+        # so only the non-superseded set enters the decode. (Hierarchical
+        # rounds already decoded and combined the admitted groups per pod
+        # inside ``_hier_round``; only the arrival ledger lands here.)
         with obs.span("fl", "stale_admission", track="stale_admission") as ssp:
             stale_nbytes = 0
-            n_stale = 0
+            if hier is None:
+                n_stale = 0
             if cfg.async_rounds and stale_buf is not None and cfg.staleness >= 1:
                 stale_nbytes = _stale_arrival_bytes(pipe, stale_buf, cohort,
                                                     n_chunks)
@@ -745,7 +847,8 @@ def run_rounds(task: Task, spec, cohort: Cohort | None = None,
                 # stale arrivals enter the coded ledger at raw size (see the
                 # History.coded_bytes comment)
                 coded += stale_nbytes
-                admit = np.setdiff1d(stale_buf.ids, part.survivors)
+                admit = (np.setdiff1d(stale_buf.ids, part.survivors) if hier is None
+                         else ())
                 if len(admit):
                     stale_mean = _decode_stale(
                         pipe, stale_buf, admit, cohort, state_srv
@@ -773,8 +876,14 @@ def run_rounds(task: Task, spec, cohort: Cohort | None = None,
                 mem_rows=None if mem_snapshot is None else _rows(mem_snapshot,
                                                                  part.stragglers),
             )
+            # hierarchical multi-process: a process mirrors only its owned
+            # pods' client rows (pod ownership is static, so the other rows'
+            # encodes happen elsewhere)
+            strag_adv = part.stragglers
+            if hier is not None:
+                strag_adv = strag_adv[np.isin(strag_adv, hier.owned_clients())]
             cstate = _advance_straggler_state(
-                pipe, rkey, xs_chunks, part.stragglers, cohort, cstate
+                pipe, rkey, xs_chunks, strag_adv, cohort, cstate
             )
 
         pop_mean = xs_chunks.mean(0)

@@ -28,6 +28,13 @@
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.fl.run \
         --device cpu --task dme --clients 4 --backend shard_map
 
+    # hierarchical aggregation: 2 pods decoded pod-local, then combined;
+    # with --hosts 2 two processes (spawned here, or placed by a launcher
+    # that sets REPRO_PROCESS_ID / REPRO_NUM_PROCESSES / REPRO_COORDINATOR)
+    # each decode their owned pods and exchange the records:
+    PYTHONPATH=src python -m repro_torch.fl.run --device cpu --task dme \
+        --pods 2 --hosts 2
+
     # a torch.profiler trace of the run (kernels, device time) into DIR, and
     # the metrics snapshot with the kernel telemetry (kernels/dispatch,
     # kernels/decode_route, kernels/cg_iters):
@@ -40,9 +47,10 @@ cumulative payload-byte ledger, and (async) admitted stale payloads;
 --compare prints an MSE-at-equal-bytes table across the baseline estimator
 family. ``--backend gspmd|shard_map`` runs the rounds on a mesh of one
 ``pod`` axis over the process group's ranks (started by ``torchrun``, or
-this process alone); every rank prints the same History. Hierarchical pods
-and hosts (``--pods``, ``--hosts`` > 1, ROADMAP A.10) are not ported and
-raise NotImplementedError.
+this process alone); every rank prints the same History. ``--pods P``
+aggregates hierarchically (``runtime/``); ``--hosts N`` runs it on N
+processes that each decode their owned pods and hold the same History;
+process 0 reports.
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ import argparse
 import json
 import math
 import os
+import sys
 
 import numpy as np
 import torch
@@ -58,6 +67,7 @@ import torch.distributed as dist
 from .. import obs, resolve_device
 from ..core import codec
 from ..dist import sharding
+from ..runtime import launch as launch_lib
 from . import rounds as rounds_lib
 from .clients import Cohort
 from .tasks import get_task
@@ -159,13 +169,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "sub-decode, then a cross-pod mean of decoded "
                          "estimates; 1 is the flat path (bitwise identical)")
     ap.add_argument("--hosts", type=int, default=1,
-                    help=">= 2 forks that many CPU processes via "
+                    help=">= 2 starts that many processes via "
                          "runtime.spawn_local, each decoding its owned pods "
                          "(or joins an existing runtime when REPRO_PROCESS_ID "
                          "is set by a cluster launcher)")
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                    help="coordinator address for --hosts >= 2 (not ported "
-                         "yet: ROADMAP A.10)")
+                    help="the runtime's key-value store for --hosts >= 2 "
+                         "(process 0 hosts it; default: REPRO_COORDINATOR)")
     ap.add_argument("--rho", type=float, default=0.9, help="dme/drift correlation")
     ap.add_argument("--dim", type=int, default=0,
                     help="dme/drift vector width (0 => 256, or 128 with --smoke)")
@@ -219,7 +229,7 @@ def make_task(args, device=None):
     return get_task(args.task, **kw)
 
 
-def run_one(task, args, name, est_kw):
+def run_one(task, args, name, est_kw, ctx=None):
     d_block = args.d_block or min(1024, max(64, 1 << (task.dim - 1).bit_length()))
     if getattr(args, "budget", "manual") == "auto":
         k = codec.suggest_budget(task.n_clients, getattr(args, "jl_eps", 0.5),
@@ -255,6 +265,7 @@ def run_one(task, args, name, est_kw):
         n_owners=getattr(args, "owners", 0),
         hierarchy="hier" if getattr(args, "pods", 1) > 1 else "flat",
         pods=getattr(args, "pods", 1),
+        runtime=ctx,
         adaptive_budgets=getattr(args, "adaptive_budgets", False),
     )
     state, hist = rounds_lib.run_rounds(task, spec, cohort, cfg, device=task.device)
@@ -362,30 +373,42 @@ def _write_obs_outputs(args, tracer, runs) -> None:
         print(f"metrics: {args.metrics_json}")
 
 
-def _refuse_unported(args) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for what the port
-    does not run yet; before any work is done."""
-    if args.pods > 1 or args.hosts > 1 or args.coordinator is not None:
-        raise NotImplementedError(
-            "--pods / --hosts > 1 / --coordinator (hierarchical aggregation over runtime/) is "
-            "not ported yet (ROADMAP A.10)")
+def _cli_worker(ctx, argv):
+    """Spawned-process body of ``--hosts N``: re-enters main() with the env
+    naming this process, so the child takes the join-existing-runtime path.
+    Module-level because spawn children unpickle workers by qualified name."""
+    return main(argv)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    if args.hosts > 1 and os.environ.get(launch_lib.ENV_PROCESS_ID) is None:
+        # no launcher placed us: start the processes ourselves
+        child_argv = list(argv if argv is not None else sys.argv[1:])
+        codes = launch_lib.spawn_local(_cli_worker, args.hosts, args=(child_argv,),
+                                       device=args.device)
+        return max(codes)
     dev = resolve_device(args.device)
+    ctx, joined = None, False
+    if args.hosts > 1 or os.environ.get(launch_lib.ENV_NUM_PROCESSES, "1") != "1":
+        joined = launch_lib.current() is None
+        ctx = launch_lib.initialize(
+            launch_lib.Topology.from_env(coordinator=args.coordinator), device=dev)
     # a mesh backend joins torchrun's process group, or starts one of this
     # process alone (sharding.make_mesh); the group ends with the run
     own_group = args.backend != "local" and not dist.is_initialized()
     try:
-        return _main(args, dev)
+        return _main(args, dev, ctx)
     finally:
         if own_group and dist.is_initialized():
             dist.destroy_process_group()
+        if joined:
+            launch_lib.shutdown()
 
 
-def _main(args, dev) -> int:
+def _main(args, dev, ctx) -> int:
+    # every process holds the identical History; process 0 reports
+    primary = ctx is None or ctx.process_id == 0
     task = make_task(args, dev)
 
     tracer = None
@@ -401,27 +424,31 @@ def _main(args, dev) -> int:
             # across estimators and the metadata ledger sums all of them
             results = {}
             for name, kw in COMPARE:
-                spec, _, hist = run_one(task, args, name, kw)
+                spec, _, hist = run_one(task, args, name, kw, ctx=ctx)
                 runs.append((name, hist, _capture_metrics(args)))
                 mean_mse = float(np.nanmean(hist.mse))
-                report(task, spec, hist, verbose=False)
+                if primary:
+                    report(task, spec, hist, verbose=False)
                 results[f"{name}({kw.get('transform', '-')})"] = (
                     mean_mse, hist.total_bytes
                 )
-            print("\nMSE at equal bytes (same k, same round keys):")
-            for label, (mse, b) in sorted(results.items(),
-                                          key=lambda kv: kv[1][0]):
-                print(f"  {label:28s} mean_mse={mse:.6f}  bytes={b}")
+            if primary:
+                print("\nMSE at equal bytes (same k, same round keys):")
+                for label, (mse, b) in sorted(results.items(),
+                                              key=lambda kv: kv[1][0]):
+                    print(f"  {label:28s} mean_mse={mse:.6f}  bytes={b}")
         else:
             est_kw = {"transform": args.transform}
-            spec, state, hist = run_one(task, args, args.estimator, est_kw)
+            spec, state, hist = run_one(task, args, args.estimator, est_kw, ctx=ctx)
             runs.append((args.estimator, hist, _capture_metrics(args)))
-            report(task, spec, hist, verbose=not args.smoke)
-            if "accuracy" in task.aux:
-                print(f"  final accuracy: "
-                      f"{task.aux['accuracy'](state):.4f}")
+            if primary:
+                report(task, spec, hist, verbose=not args.smoke)
+                if "accuracy" in task.aux:
+                    print(f"  final accuracy: "
+                          f"{task.aux['accuracy'](state):.4f}")
 
-    _write_obs_outputs(args, tracer, runs)
+    if primary:
+        _write_obs_outputs(args, tracer, runs)
     return 0
 
 

@@ -11,9 +11,17 @@ plain versions).
   route of ``dist.collectives``.
 - Fault tolerance: checkpoints every --ckpt-every steps; restart the same
   command line and it resumes; --inject-failures demonstrates recovery.
-- Every arch trains; the default is mamba2-130m. --pipeline-stages is
-  ROADMAP A.9.1 and raises. The default --ckpt-dir is repro_ckpt under the
-  temporary directory (/tmp unless TMPDIR says otherwise).
+- Every arch trains; the default is mamba2-130m. The default --ckpt-dir is
+  repro_ckpt under the temporary directory (/tmp unless TMPDIR says
+  otherwise).
+- --pipeline-stages N layer-pipelines the block stack over a ``pipe`` mesh
+  axis of N ranks (GPipe, ``dist.pipeline``) in --pipeline-microbatches
+  microbatches. One stage runs in this process on a one-rank group (NCCL
+  on the card, gloo on the CPU); N stages run under torchrun, one rank a
+  stage, each rank checkpointing under its own ``rank<r>`` directory:
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --device cpu --preset tiny --pipeline-stages 2 --steps 20
 """
 from __future__ import annotations
 
@@ -22,9 +30,12 @@ import functools
 import os
 import tempfile
 
+import torch.distributed as dist
+
 from .. import configs, resolve_device
 from ..core import codec
 from ..data import SyntheticLM
+from ..dist import sharding
 from ..models import init_params
 from ..optim import AdamW
 from ..train import init_train_state, make_train_step
@@ -49,7 +60,8 @@ def main(argv=None):
                          "(docs/DESIGN.md §10); 0 = replicated decode")
     ap.add_argument("--pipeline-stages", type=int, default=0,
                     help="layer-pipeline the block stack over this many "
-                         "devices (GPipe; ROADMAP A.9.1, raises); 0 = off")
+                         "ranks (GPipe over a 'pipe' mesh axis; N > 1 under "
+                         "torchrun); 0 = off")
     ap.add_argument("--pipeline-microbatches", type=int, default=0,
                     help="microbatch count for --pipeline-stages "
                          "(default: the stage count)")
@@ -65,6 +77,17 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    # the pipeline's mesh joins torchrun's process group, or starts one of
+    # this process alone (sharding.make_mesh); the group ends with the run
+    own_group = bool(args.pipeline_stages) and not dist.is_initialized()
+    try:
+        return _train(args, dev)
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, dev):
     cfg = configs.preset_config(args.arch, args.preset)
     print(f"[train] {cfg.name} preset={args.preset}: {cfg.n_params()/1e6:.1f}M params, "
           f"{args.clients or 1} clients, estimator="
@@ -76,9 +99,21 @@ def main(argv=None):
         dme = codec.build(args.estimator, k=args.k, d_block=args.d_block,
                           transform=args.transform, ef=args.ef)
 
+    mesh, ckpt_dir = None, os.path.join(args.ckpt_dir, f"{cfg.name}_{args.preset}")
+    if args.pipeline_stages:
+        world = (dist.get_world_size() if dist.is_initialized()
+                 else int(os.environ.get("WORLD_SIZE", 1)))
+        if world != args.pipeline_stages:
+            raise ValueError(f"--pipeline-stages {args.pipeline_stages} needs "
+                             f"{args.pipeline_stages} ranks (torchrun --nproc-per-node "
+                             f"{args.pipeline_stages}); this run has {world}")
+        mesh = sharding.make_mesh((args.pipeline_stages,), ("pipe",), device=dev)
+        if args.pipeline_stages > 1:  # every rank holds the whole state
+            ckpt_dir = os.path.join(ckpt_dir, f"rank{dist.get_rank()}")
+
     def make_step(n_clients):
         return make_train_step(cfg, optimizer, dme_spec=dme if n_clients else None,
-                               dme_ownership=args.dme_ownership,
+                               dme_ownership=args.dme_ownership, mesh=mesh,
                                pipeline_stages=args.pipeline_stages,
                                pipeline_microbatches=args.pipeline_microbatches, device=dev)
 
@@ -101,7 +136,7 @@ def main(argv=None):
     )
     sup = Supervisor(
         make_step=make_step, make_data=make_data, init_state=init_state,
-        ckpt_dir=os.path.join(args.ckpt_dir, f"{cfg.name}_{args.preset}"),
+        ckpt_dir=ckpt_dir,
         n_clients=args.clients, ckpt_every=args.ckpt_every,
     )
     params, state, history = sup.run(args.steps, fault_plan=plan)

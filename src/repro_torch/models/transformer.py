@@ -326,7 +326,13 @@ def loss_fn(params, cfg: ModelConfig, batch):
     """Next-token CE (+ router aux). batch: {"inputs", "labels"}; labels < 0
     are ignored. -> (loss, {"ce", "aux"}), 0-dim float32."""
     logits, aux = forward(params, cfg, batch["inputs"])
-    labels = batch["labels"].long()
+    return cross_entropy_loss(cfg, logits, batch["labels"], aux)
+
+
+def cross_entropy_loss(cfg: ModelConfig, logits, labels, aux):
+    """``loss_fn``'s loss from its logits: the mean next-token CE over the
+    labels >= 0, plus the router aux loss. -> (loss, {"ce", "aux"})."""
+    labels = labels.long()
     valid = labels >= 0
     labels_safe = torch.where(valid, labels, 0)
     logp = torch.log_softmax(logits, dim=-1)

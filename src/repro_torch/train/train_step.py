@@ -24,36 +24,102 @@ gathered, so every rank reports the all-client means), ``"gspmd"`` has
 every rank compute every client's gradient and encode its share, and
 ``"auto"`` takes shard_map when the clients divide over the client axes,
 else gspmd. The update is bitwise the mesh-less step's. Placing parameters
-over a ``data`` or ``model`` axis (ROADMAP A.9.2) and the GPipe schedule
-(``pipeline_stages``, ROADMAP A.9.1) are not ported and raise
+over a ``data`` or ``model`` axis (ROADMAP A.9.2) is not ported and raises
 NotImplementedError.
+
+``pipeline_stages=N`` runs the block stack layer-pipelined over the mesh's
+``pipe`` axis (GPipe, ``dist.pipeline``) inside the loss
+(``_pipelined_loss``): each rank applies its stage's blocks, the
+embedding, prologue, epilogue and head run on every rank, and after each
+backward the block gradients are summed over the ``pipe`` group (each is
+its stage's on one rank and zero on the others). Every rank then holds the
+whole gradient and applies the same update. With a codec each client's
+loss is pipelined, then the clients' gradients are exchanged.
 
 A step is functional: it returns new parameter and state trees and changes
 none it is given.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.utils.checkpoint
 
 from .. import resolve_device
 from ..core import chunking
 from ..core import random as prand
 from ..core.codec import as_pipeline
 from ..dist import collectives
+from ..dist import pipeline as pipe_lib
 from ..dist import sharding as shard_lib
 from ..models import transformer
 
 
-def _value_and_grad(params, cfg, batch):
-    """-> (loss, metrics, grads): ``transformer.loss_fn`` and its gradient
-    with respect to every leaf of ``params`` (zeros for a leaf the loss does
-    not read, as ``jax.grad`` gives)."""
+def _pipelined_loss(params, cfg, batch, *, mesh, axis, n_stages, n_micro):
+    """``transformer.loss_fn`` with the block stack run through
+    ``dist.pipeline.pipeline_apply`` (GPipe over the ``axis`` mesh axis).
+
+    The embedding, prologue, epilogue, logits and cross entropy are
+    ``loss_fn``'s own; only the repeated block stack is staged, each block
+    recomputed in the backward under ``remat == "block"``. The batch is
+    split into ``n_micro`` microbatches along its leading dim, which must
+    divide evenly. ``make_train_step`` refuses MoE block patterns: a stage
+    carries activations only, so the blocks' router aux loss would be
+    dropped (a prologue or epilogue MoE layer keeps its aux)."""
+    inputs = batch["inputs"]
+    b = inputs.shape[0]
+    if b % n_micro:
+        raise ValueError(f"batch {b} does not split into {n_micro} microbatches")
+    positions = transformer._positions(inputs)
+    x = transformer.embed_inputs(params, cfg, inputs)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, spec in enumerate(cfg.prologue):
+        x, aux = transformer._run_layer(cfg, spec, params["prologue"][i], x, aux, positions,
+                                        None, "auto")
+    if cfg.n_blocks > 0:
+        per_stage = cfg.n_blocks // n_stages
+        remat = cfg.remat == "block" and torch.is_grad_enabled()
+
+        def stage_fn(stage_params, h):
+            pos = transformer._positions(h)
+            zero = torch.zeros((), dtype=torch.float32, device=h.device)
+            for p_block in transformer._unstack(stage_params, per_stage):
+                if remat:
+                    h, _ = torch.utils.checkpoint.checkpoint(
+                        transformer._run_block, cfg, p_block, h, zero, pos, None, "auto",
+                        use_reentrant=False)
+                else:
+                    h, _ = transformer._run_block(cfg, p_block, h, zero, pos, None, "auto")
+            return h
+
+        staged = pipe_lib.partition_blocks(params["blocks"], n_stages)
+        xm = x.reshape((n_micro, b // n_micro) + tuple(x.shape[1:]))
+        x = pipe_lib.pipeline_apply(stage_fn, staged, xm, mesh, axis).reshape(x.shape)
+    for i, spec in enumerate(cfg.epilogue):
+        x, aux = transformer._run_layer(cfg, spec, params["epilogue"][i], x, aux, positions,
+                                        None, "auto")
+    logits = transformer.logits_fn(params, cfg, x)
+    return transformer.cross_entropy_loss(cfg, logits, batch["labels"], aux)
+
+
+def _value_and_grad(params, cfg, batch, loss_fn=transformer.loss_fn, pipeline=None):
+    """-> (loss, metrics, grads): ``loss_fn`` and its gradient with respect
+    to every leaf of ``params`` (zeros for a leaf the loss does not read, as
+    ``jax.grad`` gives). ``pipeline`` (mesh, axis): the block leaves'
+    gradients are summed over the ``axis`` group, every stage's on every
+    rank."""
     leaves = chunking.tree_leaves(params)
     with torch.enable_grad():
         live = [p.detach().requires_grad_() for p in leaves]
-        loss, metrics = transformer.loss_fn(chunking.tree_unflatten(params, live), cfg, batch)
+        loss, metrics = loss_fn(chunking.tree_unflatten(params, live), cfg, batch)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    if pipeline is not None:
+        blocks = {id(p) for p in chunking.tree_leaves(params["blocks"])}
+        at = [i for i, p in enumerate(leaves) if id(p) in blocks]
+        for i, g in zip(at, pipe_lib.reduce_stage_grads([grads[i] for i in at], *pipeline)):
+            grads[i] = g
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, chunking.tree_unflatten(params, grads)
 
@@ -89,11 +155,29 @@ def make_train_step(cfg, optimizer, *, dme_spec=None, mesh=None, client_axes=("p
     (module docstring). On the shard_map route ``state["ef"]`` holds this
     rank's residual rows; a buffer of all n_clients rows going in is cut to
     them. The metrics: loss, ce, aux, grad_norm, lr, and with a pipeline
-    compression_ratio (and intra_pod_reduction with ownership)."""
+    compression_ratio (and intra_pod_reduction with ownership).
+
+    ``pipeline_stages >= 1`` runs the block stack layer-pipelined over the
+    ``pipeline_axis`` mesh axis, whose size it must be, in
+    ``pipeline_microbatches`` microbatches (default: the stage count)."""
+    value_and_grad = _value_and_grad
     if pipeline_stages:
-        raise NotImplementedError(
-            f"pipeline_stages={pipeline_stages}: the GPipe schedule (dist/pipeline.py) is not "
-            "ported to repro_torch yet (ROADMAP A.9.1)")
+        sizes = {} if mesh is None else shard_lib.mesh_axis_sizes(mesh)
+        if pipeline_axis not in sizes:
+            raise ValueError(f"pipeline_stages={pipeline_stages} needs a mesh with a "
+                             f"'{pipeline_axis}' axis")
+        if sizes[pipeline_axis] != pipeline_stages:
+            raise ValueError(f"pipeline_stages={pipeline_stages} != mesh axis "
+                             f"'{pipeline_axis}' size {sizes[pipeline_axis]}")
+        if any(spec.ffn == "moe" for spec in cfg.block_pattern):
+            raise ValueError("pipeline_stages does not support MoE block patterns "
+                             "(the stage hop would drop the router aux loss)")
+        value_and_grad = functools.partial(
+            _value_and_grad,
+            loss_fn=functools.partial(_pipelined_loss, mesh=mesh, axis=pipeline_axis,
+                                      n_stages=pipeline_stages,
+                                      n_micro=pipeline_microbatches or pipeline_stages),
+            pipeline=(mesh, pipeline_axis))
     if dme_impl not in ("auto", "shard_map", "gspmd"):
         raise ValueError(f"dme_impl must be auto, shard_map or gspmd, got {dme_impl!r}")
     if mesh is not None:
@@ -111,7 +195,7 @@ def make_train_step(cfg, optimizer, *, dme_spec=None, mesh=None, client_axes=("p
     if dme_spec is None:
 
         def plain_step(params, state, batch, step):
-            loss, metrics, grads = _value_and_grad(params, cfg, _on_device(batch))
+            loss, metrics, grads = value_and_grad(params, cfg, _on_device(batch))
             params, opt, om = optimizer.update(grads, state["opt"], params)
             return params, {"opt": opt}, {"loss": loss, **metrics, **om}
 
@@ -140,7 +224,7 @@ def make_train_step(cfg, optimizer, *, dme_spec=None, mesh=None, client_axes=("p
                    for p in leaves]
         losses, metrics = [], []
         for i in range(lo, hi):
-            loss, m, grads = _value_and_grad(params, cfg, {k: v[i] for k, v in batch.items()})
+            loss, m, grads = value_and_grad(params, cfg, {k: v[i] for k, v in batch.items()})
             for dst, g in zip(stacked, chunking.tree_leaves(grads)):
                 dst[i - lo].copy_(g)
             del grads

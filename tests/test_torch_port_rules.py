@@ -8,10 +8,11 @@
   model's prefill;
 - the FL layer's entry points (``get_task``, ``run_rounds``, the CLI) run
   on the card unless asked for the CPU;
-- what is not ported yet (hierarchical rounds, the GPipe schedule,
-  parameters placed over a data or model mesh axis) raises
-  NotImplementedError naming its ROADMAP item; Mamba layers, the MoE FFN,
-  the profiler session and the mesh route of dist/, once refused, run.
+- what is not ported yet (parameters placed over a data or model mesh
+  axis) raises NotImplementedError naming its ROADMAP item; Mamba layers,
+  the MoE FFN, the profiler session, the mesh route of dist/, hierarchical
+  rounds (``--pods``, ``--hosts``) and the GPipe schedule
+  (``pipeline_stages``), once refused, run on the CPU when asked.
 """
 from __future__ import annotations
 
@@ -160,10 +161,12 @@ def test_cpu_path_never_touches_the_kernel_build(monkeypatch, spec):
     assert ops.launch_counts() == before
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(capfd):
     """What is not ported raises, naming its ROADMAP item; the mesh route of
     dist/ (A.9: ``shardings=``, the gspmd / shard_map round backends and
-    the CLI's ``--backend``), once refused here, runs on a one-rank mesh."""
+    the CLI's ``--backend``), hierarchical rounds and the CLI's ``--pods``
+    / ``--hosts`` (A.10) and the GPipe schedule (A.9.1), once refused here,
+    run on the CPU."""
     with pytest.raises(KeyError, match="unknown estimator"):
         est_base.get("rand_q")
     with pytest.raises(TypeError, match="not a codec stage"):
@@ -186,18 +189,27 @@ def test_unported_options_raise():
         dist.destroy_process_group()
     assert fl_run.main(["--device", "cpu", "--smoke", "--task", "dme", "--backend", "gspmd"]) == 0
     assert not dist.is_initialized()  # the CLI ends the group it started
-    with pytest.raises(NotImplementedError, match=r"hier.*ROADMAP A\.10"):
-        fl_rounds.run_rounds(task, spec, cfg=fl_rounds.RoundConfig(hierarchy="hier", pods=2),
-                             device="cpu")
-    for argv, item in ((["--pods", "2"], r"pods.*ROADMAP A\.10"),
-                       (["--hosts", "2"], r"hosts.*ROADMAP A\.10")):
-        with pytest.raises(NotImplementedError, match=item):
-            fl_run.main(["--device", "cpu", "--smoke", "--task", "dme", *argv])
-    # what this slice leaves: the GPipe schedule and parameters placed over
-    # a data or model axis
+    _, hist = fl_rounds.run_rounds(task, spec, cfg=fl_rounds.RoundConfig(
+        n_rounds=1, hierarchy="hier", pods=2), device="cpu")
+    assert len(hist.dcn_bytes) == 1 and hist.dcn_bytes[0] > 0
+    capfd.readouterr()
+    for argv in (["--pods", "2"], ["--pods", "2", "--hosts", "2"]):
+        assert fl_run.main(["--device", "cpu", "--smoke", "--task", "dme", *argv]) == 0
+        assert "total_bytes=" in capfd.readouterr().out  # process 0 reported
+    # the GPipe schedule on a one-rank pipe axis; what is left: parameters
+    # placed over a data or model axis
     cfg = configs.preset_config("musicgen-medium", "tiny")
-    with pytest.raises(NotImplementedError, match=r"pipeline_stages.*ROADMAP A\.9\.1"):
-        make_train_step(cfg, AdamW(), pipeline_stages=2, device="cpu")
+    params = transformer.init_params(cfg, 0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(0))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = sharding.make_mesh((1,), ("pipe",), device="cpu")
+        step = make_train_step(cfg, AdamW(), mesh=mesh, pipeline_stages=1, device="cpu")
+        _, _, metrics = step(params, {"opt": AdamW().init(params)},
+                             {"inputs": tokens, "labels": tokens}, 0)
+        assert torch.isfinite(metrics["loss"])
+    finally:
+        dist.destroy_process_group()
     for shape in ((1, 2, 1), (1, 1, 2)):
         mesh = types.SimpleNamespace(axis_names=("pod", "data", "model"),
                                      devices=np.empty(shape))

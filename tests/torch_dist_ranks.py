@@ -1,7 +1,9 @@
-"""Rank bodies of the port's multi-rank tests (tests/test_torch_dist_mesh.py).
+"""Rank bodies of the port's multi-rank tests (tests/test_torch_dist_mesh.py,
+tests/test_torch_pipeline.py, tests/test_torch_runtime.py).
 
-``run_ranks(body, world, tmp_path)`` spawns ``world`` processes with
-torch.multiprocessing, joins them into one gloo group through a FileStore
+``run_ranks(body, world, tmp_path)`` starts ``world`` processes with
+torch.multiprocessing (forked from a server process that imported this
+module once), joins them into one gloo group through a FileStore
 under ``tmp_path`` (no TCP port, so parallel test workers cannot collide),
 runs ``BODIES[body](rank, world)`` in each on one thread, and returns every
 rank's result, written with ``torch.save``. A rank that raises fails the
@@ -23,7 +25,7 @@ from repro_torch import configs
 from repro_torch.core import chunking, codec
 from repro_torch.data import SyntheticLM
 from repro_torch.dist import collectives as coll
-from repro_torch.dist import sharding
+from repro_torch.dist import pipeline, sharding
 from repro_torch.fl import Cohort, RoundConfig, get_task, run_rounds
 from repro_torch.models import init_params
 from repro_torch.optim import AdamW
@@ -246,7 +248,120 @@ def two_ranks(rank: int, world: int) -> dict:
     }
 
 
-BODIES = {"four_ranks": four_ranks, "two_ranks": two_ranks}
+# ------------------------------------------------- the GPipe schedule
+
+
+def pipe_data() -> dict:
+    """tests/test_pipeline.py's blocks and microbatches (8 blocks tanh(h @ w
+    + b) of width 16; 6 microbatches of 3), made with numpy, and a probe
+    whose product with the output is the loss the gradients are of."""
+    rng = np.random.default_rng(3)
+    return {"w": (0.3 * rng.standard_normal((8, 16, 16))).astype(np.float32),
+            "b": (0.1 * rng.standard_normal((8, 16))).astype(np.float32),
+            "x": rng.standard_normal((6, 3, 16)).astype(np.float32),
+            "probe": rng.standard_normal((6, 3, 16)).astype(np.float32)}
+
+
+def _tanh_stage(stage_params, h):
+    for w, b in zip(stage_params["w"].unbind(0), stage_params["b"].unbind(0)):
+        h = torch.tanh(h @ w + b)
+    return h
+
+
+def pipeline_case(world: int) -> dict:
+    """``pipeline_apply`` over a ``pipe`` axis of ``world`` ranks: the
+    output and the gradients of sum(output * probe) (the blocks' summed over
+    the stages)."""
+    mesh = sharding.make_mesh((world,), ("pipe",), device="cpu")
+    data = {k: torch.from_numpy(v) for k, v in pipe_data().items()}
+    w, b, x = (data[k].requires_grad_() for k in ("w", "b", "x"))
+    out = pipeline.pipeline_apply(_tanh_stage, pipeline.partition_blocks({"w": w, "b": b}, world),
+                                  x, mesh)
+    gw, gb, gx = torch.autograd.grad((out * data["probe"]).sum(), [w, b, x])
+    gw, gb = pipeline.reduce_stage_grads([gw, gb], mesh)
+    return {"out": out.detach(), "w": gw, "b": gb, "x": gx}
+
+
+PIPE_ARCH = "musicgen-medium"
+PIPE_SEQ = 16
+PIPE_STEPS = {  # name -> (codec args or None, clients, batch a client, microbatches)
+    "plain": (None, 0, 4, 4),
+    "dme": (("identity", dict(d_block=256)), 3, 2, 2),
+}
+
+
+def pipe_step(name: str, mesh=None, stages: int = 0) -> dict:
+    """One training step of tiny musicgen-medium, pipelined over ``mesh``'s
+    ``pipe`` axis when ``stages``: the loss and the new parameters."""
+    spec_args, clients, batch, micro = PIPE_STEPS[name]
+    cfg = configs.preset_config(PIPE_ARCH, "tiny")
+    params = init_params(cfg, 0, device="cpu")
+    opt = AdamW(lr=1e-3, warmup_steps=2)
+    spec = None if spec_args is None else codec.build(spec_args[0], **spec_args[1])
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=PIPE_SEQ, batch=batch,
+                       n_clients=clients, seed=0)
+    step = make_train_step(cfg, opt, dme_spec=spec, mesh=mesh, pipeline_stages=stages,
+                           pipeline_microbatches=micro if stages else 0, device="cpu")
+    new, _, metrics = step(params, init_train_state(cfg, opt, params, spec, clients),
+                           data.batch_at(0, "cpu"), 0)
+    return {"loss": float(metrics["loss"]), "params": chunking.tree_leaves(new)}
+
+
+def pipe_two(rank: int, world: int) -> dict:
+    """The schedule on two ranks, and the two-stage steps (rank 0 also the
+    unpipelined ones)."""
+    mesh = sharding.make_mesh((world,), ("pipe",), device="cpu")
+    out = {"apply": pipeline_case(world)}
+    for name in PIPE_STEPS:
+        out[name] = {"pipelined": pipe_step(name, mesh, world),
+                     "plain": pipe_step(name) if rank == 0 else None}
+    return out
+
+
+def pipe_four(rank: int, world: int) -> dict:
+    return {"apply": pipeline_case(world)}
+
+
+# ------------------------------------------- the runtime's two processes
+
+RUNTIME_BASE = dict(  # tests/test_runtime.py's BASE
+    task="drift",
+    task_kw=dict(n_clients=8, d=128, rho=0.9, omega=0.05, client_bias=0.5),
+    stages=[("rand_proj_spatial", dict(k=8, d_block=64, transform="wavg"))],
+    cohort=dict(n_clients=8, participation=0.9, dropout=0.2),
+    rounds=dict(n_rounds=3, hierarchy="hier", pods=2),
+)
+RUNTIME_VARIANTS = {  # tests/test_runtime.py's variants, and the base
+    "base": RUNTIME_BASE,
+    "ef": dict(RUNTIME_BASE, stages=[("top_k", dict(k=8, d_block=64)),
+                                     ("error_feedback", dict())]),
+    "hetero": dict(RUNTIME_BASE, cohort=dict(RUNTIME_BASE["cohort"],
+                                             budgets=(4, 4, 8, 8, 8, 8, 16, 16))),
+    "async": dict(RUNTIME_BASE, rounds=dict(RUNTIME_BASE["rounds"], async_rounds=True)),
+}
+
+
+def runtime_two(rank: int, world: int) -> dict:
+    """One of the runtime's processes: it joins the runtime (process 0
+    hosts the store, at a port it hands the others over the gloo group),
+    checks the store's byte round trip, then runs every variant's
+    hierarchical rounds."""
+    from repro_torch.runtime import launch, workers
+
+    port = [launch.free_port() if rank == 0 else None]
+    dist.broadcast_object_list(port, src=0)
+    ctx = launch.initialize(launch.Topology(world, rank, f"127.0.0.1:{port[0]}"), device="cpu")
+    try:
+        out = {"kv": workers.kv_roundtrip_worker(ctx)}
+        for tag, spec in RUNTIME_VARIANTS.items():
+            out[tag] = workers.round_worker(ctx, spec)
+    finally:
+        launch.shutdown()
+    return out
+
+
+BODIES = {"four_ranks": four_ranks, "two_ranks": two_ranks, "pipe_two": pipe_two,
+          "pipe_four": pipe_four, "runtime_two": runtime_two}
 
 
 # --------------------------------------------------------------- the spawn
@@ -267,8 +382,11 @@ def run_ranks(body: str, world: int, tmp_path) -> list:
     """Every rank's result of ``BODIES[body]`` run on ``world`` spawned gloo
     ranks; fails past DEADLINE_S, or with a rank's traceback."""
     out_dir = str(tmp_path)
+    # the ranks fork from one server process that imported this module (and
+    # torch) once, instead of each importing it anew
+    mp.set_forkserver_preload([__name__])
     ctx = mp.start_processes(_entry, args=(world, os.path.join(out_dir, "store"), out_dir, body),
-                             nprocs=world, join=False, start_method="spawn")
+                             nprocs=world, join=False, start_method="forkserver")
     deadline = time.monotonic() + DEADLINE_S
     try:
         while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):

@@ -6,6 +6,7 @@ environment and build phases (each phase's checks stay fatal):
         serve_mamba serve_moe flash_d128
     python3 tools/chip_phases.py gc_probe
     python3 tools/chip_phases.py dist
+    python3 tools/chip_phases.py pipeline hier
 
 ``gc_probe`` times the mamba2-130m training cell ((d)) three times in one
 process: fresh, after ``phase_fl`` (which leaves millions of live Python
@@ -16,7 +17,10 @@ estimator phases' gradient tree. ``dist_timing`` times warm estimator
 rounds on the local route (sync, overlapped, 4 logical owners) and, where
 the checkout has them, on the mesh routes of one NCCL rank, and counts the
 kernel launches of one overlapped local round; it runs on an older
-checkout too, to compare two trees in one call.
+checkout too, to compare two trees in one call. ``pipeline`` runs
+``phase_pipeline`` (the GPipe schedule on mamba2-130m at full width) and
+``hier`` ``phase_hier`` (hierarchical FL rounds at the estimator's full
+width, over one and two processes, and the CLI's ``--pods 2 --hosts 2``).
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ import chip_smoke as cs  # noqa: E402
 def gc_probe(smi: str) -> dict:
     out = {"fresh": cs._train_mamba(smi)["median_ms"]}
     torch.cuda.empty_cache()
-    cs.phase_fl(smi)
+    cs.phase_fl(smi, cs.fl_task())
     torch.cuda.empty_cache()
     cs.log(f"live Python objects after phase_fl: {len(gc.get_objects())}")
     out["after_fl"] = cs._train_mamba(smi)["median_ms"]
@@ -111,6 +115,8 @@ def main(names: list) -> int:
         "gc_probe": gc_probe,
         "dist": lambda smi: cs.phase_dist(cs.gradient_tree(), smi),
         "dist_timing": dist_timing,
+        "pipeline": cs.phase_pipeline,
+        "hier": lambda smi: cs.phase_hier(smi, cs.fl_task()),
     }
     for name in names:
         t0 = time.perf_counter()
