@@ -212,6 +212,25 @@ result):
    anywhere can move an expert in bf16); then one float32 prefill of the
    same weights and prompts through K5's float32 route x 9, logits within
    1e-3 of the plain float32 path's and first tokens equal;
+   then parameters placed over the data (FSDP) and model (tensor-parallel)
+   axes (``phase_placed``, lines ``placed (a)``, ``placed (b)``,
+   ``placed rank N``): four gloo ranks on the card (NCCL refuses two a
+   card; any rank's failure fails the run), (a) musicgen-medium at full
+   width, 8 of 48 layers (232,809,984 parameters), 4 clients x 4 x 128,
+   on the mesh (pod, data, model) = (1, 2, 2) through
+   ``make_train_step(mesh=)``, the exchange streamed in tiles of 65,536
+   chunks: a first and a warm bf16 step (wall ms, peak memory,
+   ``dist/host_staged_bytes``, K1 x 4 / K3 x 1 / 1-64 CG steps a tile, each
+   rank's counts zeroed just before its step and read just after), then a
+   float32 step whose update, under AdamW at eps 1e-6, is within 2e-5 of
+   the mesh-less step's (computed first in this process), each rank
+   holding only its shards at rest (by its allocated memory); (b)
+   gemma3-4b at full width served on (1, 1, 4), 2 prompts of 2048 and 8
+   greedy tokens, in float32 (logits within relative L2 1e-4 of the
+   one-rank kernel route, tokens equal) and bf16 (printed): K5 once an
+   attention layer a prefill on every rank, and against its plain version
+   at a rank's head shape (2 x 2 heads over 1 kv head of 256); and which
+   of gloo's collectives take CUDA tensors (each on a group of its own);
 10. time each kernel at its main path's shapes (CUDA events, median of 10),
    beside its plain version, its bound and a one-call PyTorch equivalent (a
    dense float32 matmul or einsum for K1-K4, scaled_dot_product_attention
@@ -238,7 +257,9 @@ without CUDA or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -1824,6 +1845,413 @@ def phase_pipeline(smi: str) -> dict:
     return out
 
 
+# ------------------------- phase_placed (parameters placed over data / model)
+
+PLACED_RANKS = 4            # gloo ranks on the one card (NCCL refuses two a card)
+PLACED_JOIN_S = 600         # the spawned ranks' deadline
+PLACED_TRAIN_MESH = (1, 2, 2)   # (pod, data, model)
+# (a): musicgen-medium at full width, 8 of its 48 layers. Each rank holds
+# every client's whole gradient and its chunked copy for the exchange (2 x
+# 4 x 0.93 GB): at 12 layers (346,068,480 parameters) a rank reached 16.3
+# GB in the CG decode and the four ranks ran out of the card's 80 GB
+PLACED_TRAIN_BLOCKS, PLACED_TRAIN_PARAMS = 8, 232_809_984
+# the compressed mean streamed in tiles of 65,536 chunks (bitwise the whole
+# exchange), so that its CG temporaries are a tile's, not the tree's
+PLACED_OVERLAP_TILE = 65536
+PLACED_SERVE_MESH = (1, 1, 4)
+PLACED_SERVE_BATCH, PLACED_SERVE_PROMPT, PLACED_SERVE_GEN = 2, 2048, 8
+PLACED_SERVE_TOL = 1e-4     # float32 logits, relative L2, and equal tokens
+PLACED_LOCAL_HEADS = (2, 1, 256)  # gemma3-4b's q heads, kv heads, d_head a rank over 4
+PLACED_KERNELS = ("fwht", "srht_decode_sum", "srht_cg_step", "flash_attention_f32",
+                  "flash_attention_bf16")
+PLACED_PROBE_OPS = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+                    "reduce_scatter_tensor", "all_to_all_single")
+
+
+def _placed_serve_cfg():
+    from repro_torch import configs
+
+    return configs.preset_config("gemma3-4b", "full").replace(attn_impl="flash")
+
+
+def _placed_train_cfg(dtype: str):
+    from repro_torch import configs
+
+    return configs.preset_config(TRAIN_ARCH, TRAIN_PRESET).replace(
+        n_blocks=PLACED_TRAIN_BLOCKS, dtype=dtype)
+
+
+def _placed_step(cfg, mesh=None, shardings=None):
+    """(params, state, batch, step) of (a)'s cell in ``cfg``'s compute
+    dtype: AdamW at PIPE_EPS, the training CLI's codec, 4 clients x 4 x 128
+    tokens; placed over ``mesh`` when given."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.train import init_train_state, make_train_step
+
+    params = init_params(cfg, 0, device=DEV, shardings=shardings)
+    opt = _train_opt(eps=PIPE_EPS)
+    state = init_train_state(cfg, opt, params, _train_spec(), N_CLIENTS, shardings=shardings)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                        n_clients=N_CLIENTS, seed=0).batch_at(0, DEV)
+    step = make_train_step(cfg, opt, dme_spec=_train_spec(), mesh=mesh,
+                           param_shardings=shardings, dme_overlap=True,
+                           dme_overlap_tile=PLACED_OVERLAP_TILE, device=DEV)
+    return params, state, batch, step
+
+
+def _placed_run(step, params, state, batch) -> dict:
+    """One call of ``step`` from ``params``/``state``: its wall ms (host
+    clock, synchronised), launches, host-staged bytes, peak memory, loss
+    and new parameters."""
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+
+    obs.enable()
+    obs.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()  # the step's window opens here
+    t0 = time.perf_counter()
+    new, new_state, metrics = step(params, state, batch, 0)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(ops.launch_counts())  # ... and closes here
+    staged = obs.snapshot()["counters"].get("dist/host_staged_bytes", 0)
+    obs.disable()
+    obs.reset()
+    return {"new": new, "state": new_state, "wall_ms": wall_ms, "launches": launches,
+            "host_staged_bytes": int(staged), "loss": float(metrics["loss"]),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _placed_launch_check(tag: str, launches: dict) -> None:
+    launched = dict(launches)
+    steps = launched.pop("srht_cg_step", 0)
+    lo, hi = TRAIN_CG_STEPS
+    # the overlapped stream encodes and decodes a tile at a time
+    chunks = -(-PLACED_TRAIN_PARAMS // D_BLOCK)
+    tiles = -(-chunks // PLACED_OVERLAP_TILE)
+    if launched != {"fwht": N_CLIENTS * tiles, "srht_decode_sum": tiles} or \
+            not lo * tiles <= steps <= hi * tiles:
+        fail(f"({tag}) the placed step launched {launches}: not K1 x {N_CLIENTS * tiles}, "
+             f"K3 x {tiles} and {lo * tiles}-{hi * tiles} CG steps")
+
+
+def _placed_train_ref(ref_dir: str) -> dict:
+    """(a)'s one-rank reference: the mesh-less step in float32 (its update
+    saved for the ranks) and in bf16 (wall and peak memory)."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = _placed_train_cfg(dtype)
+        if cfg.n_params() != PLACED_TRAIN_PARAMS:
+            fail(f"(a) musicgen-medium at {PLACED_TRAIN_BLOCKS} blocks has {cfg.n_params()} "
+                 f"parameters, not {PLACED_TRAIN_PARAMS}")
+        params, state, batch, step = _placed_step(cfg)
+        at_rest = torch.cuda.memory_allocated()
+        step(params, state, batch, 0)  # first call
+        run = _placed_run(step, params, state, batch)
+        out[dtype] = {k: run[k] for k in ("wall_ms", "loss", "peak_gb", "launches")}
+        out[dtype]["at_rest_gb"] = at_rest / 1e9
+        if dtype == "float32":
+            torch.save({"leaves": [t.cpu() for t in _leaves(run["new"])], "loss": run["loss"]},
+                       os.path.join(ref_dir, "train_f32.pt"))
+        del params, state, batch, step, run
+        _free()
+    return out
+
+
+def _free() -> None:
+    """Collect what reference cycles hold, then hand the cache back: the
+    four ranks need the card's memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _placed_serve_ref(ref_dir: str) -> dict:
+    """(b)'s one-rank reference: gemma3-4b at full width served on the
+    kernel route in float32 and bf16 (logits and tokens saved)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+
+    cfg = _placed_serve_cfg()
+    params = init_params(cfg, SERVE_SEED, device=DEV)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        res = serve.serve(cfg.replace(dtype=dtype), params, batch=PLACED_SERVE_BATCH,
+                          prompt_len=PLACED_SERVE_PROMPT, gen=PLACED_SERVE_GEN, seed=SERVE_SEED,
+                          device=DEV)
+        out[dtype] = {k: res[k].cpu() for k in ("tokens", "prefill_logits", "last_logits")}
+        out[dtype]["prefill_ms"] = res["prefill_s"] * 1e3
+        out[dtype]["decode_ms_per_step"] = res["decode_s"] * 1e3 / (PLACED_SERVE_GEN - 1)
+    torch.save(out, os.path.join(ref_dir, "serve.pt"))
+    del params, res
+    _free()
+    return {d: {k: v for k, v in r.items() if k.endswith("ms") or k.endswith("step")}
+            for d, r in out.items()}
+
+
+def _placed_gloo_probe(rank: int, world: int) -> dict:
+    """Which of gloo's collectives take CUDA tensors: each on a group of its
+    own with a 60 s timeout, so that one that fails on some ranks only
+    cannot hold the others. -> {op: "ok" | the error's first line}."""
+    import datetime
+
+    import torch.distributed as dist
+
+    out = {}
+    for op in PLACED_PROBE_OPS:
+        group = dist.new_group(list(range(world)), backend="gloo",
+                               timeout=datetime.timedelta(seconds=60))
+        t = torch.full((world * 4,), float(rank + 1), device=DEV)
+        try:
+            if op == "all_reduce":
+                dist.all_reduce(t, group=group)
+            elif op == "broadcast":
+                dist.broadcast(t, src=0, group=group)
+            elif op == "all_gather":
+                dist.all_gather([torch.empty_like(t) for _ in range(world)], t, group=group)
+            elif op == "all_gather_into_tensor":
+                dist.all_gather_into_tensor(t.new_empty(world * t.numel()), t, group=group)
+            elif op == "reduce_scatter_tensor":
+                dist.reduce_scatter_tensor(t.new_empty(4), t, group=group)
+            else:
+                dist.all_to_all_single(torch.empty_like(t), t, group=group)
+            torch.cuda.synchronize()
+            out[op] = "ok"
+        except Exception as e:  # the finding: recorded, not fatal
+            out[op] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def _placed_rank(rank: int, world: int, store: str, out_dir: str, ref_dir: str) -> None:
+    """One of PLACED_RANKS gloo ranks on the card: (a) the placed DME step
+    of musicgen-medium on (1, 2, 2), bf16 first and warm, then float32
+    against the reference's update; (b) gemma3-4b served on (1, 1, 4) in
+    float32 and bf16 against the one-rank kernel route; then the gloo
+    probe."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    out = {"rank": rank}
+    try:
+        # ---- (a) training on (1, 2, 2)
+        mesh = sharding.make_mesh(PLACED_TRAIN_MESH, ("pod", "data", "model"), device=DEV)
+        pl = sharding.Placement(mesh)
+        for dtype in ("bfloat16", "float32"):
+            cfg = _placed_train_cfg(dtype)
+            sh = sharding.param_shardings(cfg, mesh)
+            params, state, batch, step = _placed_step(cfg, mesh, sh)
+            torch.cuda.synchronize()
+            at_rest = torch.cuda.memory_allocated()
+            want_rest = 3 * sum(t.numel() * 4 for t in _leaves(params))  # params, mu, nu
+            whole_rest = 3 * PLACED_TRAIN_PARAMS * 4
+            first = _placed_run(step, params, state, batch) if dtype == "bfloat16" else None
+            run = _placed_run(step, params, state, batch)
+            row = {k: run[k] for k in ("wall_ms", "loss", "launches", "host_staged_bytes",
+                                       "peak_gb")}
+            row.update(first_wall_ms=None if first is None else first["wall_ms"],
+                       at_rest_gb=at_rest / 1e9, shard_bytes_at_rest=want_rest,
+                       whole_bytes_at_rest=whole_rest)
+            if dtype == "float32":
+                ref = torch.load(os.path.join(ref_dir, "train_f32.pt"), mmap=True)
+                specs = [s.spec for s in _leaves(sh)]
+                gap = max(float((a.float() - pl.local(b.to(DEV), spec).float()).abs().max())
+                          for a, b, spec in zip(_leaves(run["new"]), ref["leaves"], specs))
+                row.update(max_abs_update_gap_vs_meshless=gap, meshless_loss=ref["loss"])
+                del ref
+            # what a rank holds after the step, the step still alive (a tree
+            # gathered over data that it kept, across steps or not, would
+            # show here): its shards of the new state, and little else
+            del first, params, state
+            torch.cuda.synchronize()
+            row["after_step_gb"] = torch.cuda.memory_allocated() / 1e9
+            row["after_step_shard_gb"] = 3 * sum(t.numel() * 4 for t in _leaves(run["new"])) / 1e9
+            row["gathered_gb"] = sum(
+                math.prod(sharding.whole_shape(t.shape, tuple(e if e == "data" else None
+                                                              for e in spec), mesh)) * 4
+                for t, spec in zip(_leaves(run["new"]), (s.spec for s in _leaves(sh)))) / 1e9
+            out[f"train_{dtype}"] = row
+            del run, batch, step
+            _free()
+        # ---- (b) serving on (1, 1, 4)
+        mesh = sharding.make_mesh(PLACED_SERVE_MESH, ("pod", "data", "model"), device=DEV)
+        cfg = _placed_serve_cfg()
+        sh = sharding.param_shardings(cfg, mesh)
+        params = init_params(cfg, SERVE_SEED, device=DEV, shardings=sh)
+        torch.cuda.synchronize()
+        ref = torch.load(os.path.join(ref_dir, "serve.pt"))
+        out["serve_params_gb"] = torch.cuda.memory_allocated() / 1e9
+        for dtype in ("float32", "bfloat16"):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()  # the serving path's window opens here
+            res = serve.serve(cfg.replace(dtype=dtype), params, batch=PLACED_SERVE_BATCH,
+                              prompt_len=PLACED_SERVE_PROMPT, gen=PLACED_SERVE_GEN,
+                              seed=SERVE_SEED, device=DEV, mesh=mesh, param_shardings=sh)
+            torch.cuda.synchronize()
+            launches = dict(ops.launch_counts())  # ... and closes here
+            want = ref[dtype]
+            out[f"serve_{dtype}"] = {
+                "launches": launches, "prefill_ms": res["prefill_s"] * 1e3,
+                "decode_ms_per_step": res["decode_s"] * 1e3 / (PLACED_SERVE_GEN - 1),
+                "tokens_equal": bool(torch.equal(res["tokens"].cpu(), want["tokens"])),
+                "prefill_logits_gap": rel_l2(res["prefill_logits"].cpu(), want["prefill_logits"]),
+                "last_logits_gap": rel_l2(res["last_logits"].cpu(), want["last_logits"])}
+            del res
+        del params
+        _free()
+        out["gloo_cuda"] = _placed_gloo_probe(rank, world)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    except BaseException:
+        import traceback
+
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _placed_spawn(tmp: str, ref_dir: str) -> list:
+    """PLACED_RANKS processes on the one card over gloo; any rank's failure
+    fails the run."""
+    import torch.multiprocessing as mp
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_placed_rank, args=(PLACED_RANKS, os.path.join(tmp, "store"), tmp,
+                                                 ref_dir),
+                             nprocs=PLACED_RANKS, join=False, start_method="spawn")
+    deadline = t0 + PLACED_JOIN_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.perf_counter())):
+            if time.perf_counter() >= deadline:
+                fail(f"the {PLACED_RANKS} placed ranks did not finish in {PLACED_JOIN_S} s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        errors = {r: open(os.path.join(tmp, f"rank{r}.err")).read()[-3000:]
+                  for r in range(PLACED_RANKS) if os.path.exists(os.path.join(tmp, f"rank{r}.err"))}
+        fail(f"a placed rank failed: {e}; each rank's error: {errors}")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    ranks = []
+    for r in range(PLACED_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def _placed_flash_local(errs: Errors) -> dict:
+    """K5 against its plain version at (b)'s per-rank shape: 2 requests x 2
+    q heads over 1 kv head of 256, 2048 tokens, both routes and windows."""
+    from repro_torch.kernels import ops
+
+    h, kvh, dh = PLACED_LOCAL_HEADS
+    g = torch.Generator(device=DEV).manual_seed(78)
+    base = _qkv(g, PLACED_SERVE_BATCH * kvh, h // kvh, PLACED_SERVE_PROMPT, PLACED_SERVE_PROMPT,
+                dh, torch.float32)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dtype) for t in base)
+        for window in SERVE_WINDOWS:
+            atol, rtol = _flash_tol(dtype, window, 0)
+            got = ops.flash_attention(q, k, v, rep=h // kvh, window=window, use_kernel="force")
+            want = ops.flash_attention(q, k, v, rep=h // kvh, window=window, use_kernel="never")
+            errs.check(FLASH_ROUTES[dtype], got, want, exact=False, rtol=rtol, atol=atol,
+                       what=f"placed local heads {dtype} window={window}")
+            out[f"{dtype} window={window}"] = float((got.float() - want.float()).abs().max())
+    return out
+
+
+def phase_placed(smi: str, errs: Errors) -> dict:
+    """Parameters placed over the data (FSDP) and model (tensor-parallel)
+    axes, PLACED_RANKS gloo ranks on the one card: (a) the DME step of
+    musicgen-medium at full width, 8 layers, on (1, 2, 2), its float32
+    update within PIPE_TOL of the mesh-less step's under AdamW at
+    PIPE_EPS, each rank holding its shards at rest; (b) gemma3-4b at full
+    width served on (1, 1, 4): float32 logits within PLACED_SERVE_TOL of
+    the one-rank kernel route and the tokens equal (bf16 printed), K5 once
+    an attention layer a prefill on every rank, and K5 against its plain
+    version at a rank's head shape. -> the launches of every rank."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    _free()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_dir = os.path.join(tmp, "ref")
+        os.makedirs(ref_dir)
+        train_ref = _placed_train_ref(ref_dir)
+        log(f"placed (a) mesh-less reference [{smi}] " + json.dumps(train_ref))
+        serve_ref = _placed_serve_ref(ref_dir)
+        log(f"placed (b) one-rank reference [{smi}] " + json.dumps(serve_ref))
+        t_ref = time.perf_counter() - t0
+        log(f"placed: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated in this process "
+            "before the ranks start")
+        ranks = _placed_spawn(tmp, ref_dir)
+    t_ranks = time.perf_counter() - t0 - t_ref
+    flash_local = _placed_flash_local(errs)
+    n_attn = sum(spec.kind == "attn" for spec in _placed_serve_cfg().layers)
+    launches = {}
+    for r in ranks:
+        for key in ("train_bfloat16", "train_float32"):
+            _placed_launch_check(f"a {key} rank {r['rank']}", r[key]["launches"])
+        for dtype, kernel in (("float32", "flash_attention_f32"),
+                              ("bfloat16", "flash_attention_bf16")):
+            if r[f"serve_{dtype}"]["launches"] != {kernel: n_attn}:
+                fail(f"(b) rank {r['rank']} {dtype} serving launched "
+                     f"{r[f'serve_{dtype}']['launches']}, not {kernel} x {n_attn}")
+        for key in ("train_bfloat16", "serve_float32", "serve_bfloat16"):
+            for name, n in r[key]["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+    out = {"train_mesh": PLACED_TRAIN_MESH, "serve_mesh": PLACED_SERVE_MESH,
+           "backend": "gloo", "device": "cuda:0 (all ranks)",
+           "note": "four processes share one card: not a multi-card time",
+           "reference_seconds": t_ref, "ranks_seconds_with_spawn": t_ranks,
+           "train_reference": train_ref, "serve_reference": serve_ref,
+           "flash_local_heads_max_abs_err": flash_local, "launches": launches}
+    for r in ranks:
+        log(f"placed rank {r['rank']} [{smi}] " + json.dumps(r))
+    log(f"placed [{smi}] " + json.dumps(out))
+    for r in ranks:
+        a = r["train_float32"]
+        if not a["max_abs_update_gap_vs_meshless"] <= PIPE_TOL:
+            fail(f"(a) rank {r['rank']}: the placed float32 update differs from the mesh-less "
+                 f"step's by {a['max_abs_update_gap_vs_meshless']} (limit {PIPE_TOL})")
+        if not abs(a["loss"] - a["meshless_loss"]) <= 1e-5:
+            fail(f"(a) rank {r['rank']}: placed loss {a['loss']} against {a['meshless_loss']}")
+        for key in ("train_bfloat16", "train_float32"):
+            row = r[key]
+            if not row["shard_bytes_at_rest"] < row["whole_bytes_at_rest"] / 2:
+                fail(f"(a) rank {r['rank']} holds {row['shard_bytes_at_rest']} bytes of "
+                     f"parameters and moments, not a shard of {row['whole_bytes_at_rest']}")
+            # at rest: the shards of the new state, and less than half of the
+            # parameters gathered over data, which a step holds while it runs
+            if not row["after_step_gb"] < row["after_step_shard_gb"] + row["gathered_gb"] / 2:
+                fail(f"(a) rank {r['rank']} {key}: {row['after_step_gb']} GB allocated at rest "
+                     f"against {row['after_step_shard_gb']} GB of shards (the parameters "
+                     f"gathered over data: {row['gathered_gb']} GB)")
+            if row["host_staged_bytes"] <= 0:
+                fail(f"(a) rank {r['rank']}: gloo's collectives were not staged through the host")
+        s = r["serve_float32"]
+        if not (s["tokens_equal"] and s["prefill_logits_gap"] <= PLACED_SERVE_TOL
+                and s["last_logits_gap"] <= PLACED_SERVE_TOL):
+            fail(f"(b) rank {r['rank']}: float32 placed serving against the one-rank kernel "
+                 f"route: tokens equal {s['tokens_equal']}, logits gaps "
+                 f"{s['prefill_logits_gap']} / {s['last_logits_gap']} (limit {PLACED_SERVE_TOL})")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"placed: {out['seconds']:.1f} s; launches {launches}")
+    return out
+
+
 # ------------------------------------- phase_hier (the hierarchical runtime)
 
 HIER_ROUNDS = 3
@@ -3319,8 +3747,8 @@ def _count_drops(dropped: list):
 
     saved = moe.dispatch
 
-    def dispatch(sel, n_experts, cap):
-        out = saved(sel, n_experts, cap)
+    def dispatch(sel, n_experts, cap, before=None):
+        out = saved(sel, n_experts, cap, before)
         dropped.append(((~out[3]).sum(), out[3].numel()))
         return out
 
@@ -3733,15 +4161,18 @@ def main() -> int:
     phase_tiny_gemma()
     phase_serve_mamba(smi)
     moe_serve = phase_serve_moe(smi)
+    placed_launches = phase_placed(smi, errs)["launches"]
     kernels = phase_timing(calls, launches, errs, inputs)
     kernels += phase_flash_timing(
         flash_inputs, {**serve_out["launches"], **serve_out["launches_f32_serving"]}, errs)
     kernels.append(phase_flash_timing_d128(moe_serve["launches"], errs))
     for row in kernels:  # the launches of phase_dist (a)'s five mesh routes,
-        # phase_hier's (b) and (c) and phase_pipeline's (a) and (b)
+        # phase_hier's (b) and (c), phase_pipeline's (a) and (b) and every
+        # rank of phase_placed's (a) and (b)
         row["launches_dist"] = int(dist_launches.get(row["name"], 0))
         row["launches_hier"] = int(hier_launches.get(row["name"], 0))
         row["launches_pipeline"] = int(pipeline_launches.get(row["name"], 0))
+        row["launches_placed"] = int(placed_launches.get(row["name"], 0))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -45,19 +45,21 @@ def tree_leaves(tree) -> list:
 def tree_unflatten(tree, leaves: list):
     """A tree shaped like ``tree`` whose leaves, in ``tree_leaves`` order,
     are ``leaves``; dicts keep their own key order."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            new = {k: build(node[k]) for k in sorted(node)}
-            return {k: new[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(sub) for sub in node)
-        if node is None:
-            return None
-        return next(it)
 
-    return build(tree)
+def _build(node, it):
+    # a module function, not a closure that calls itself: such a closure is
+    # a reference cycle, and it kept ``leaves`` (a step's gradients: GBs on
+    # the card) alive until the cyclic collector ran
+    if isinstance(node, dict):
+        new = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: new[k] for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(sub, it) for sub in node)
+    if node is None:
+        return None
+    return next(it)
 
 
 def flat_dtype(leaves: list) -> torch.dtype:

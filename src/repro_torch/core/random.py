@@ -64,7 +64,8 @@ def threefry2x32(k0, k1, x0, x1) -> tuple:
     """Threefry-2x32, 20 rounds, of counts (x0, x1) under key (k0, k1): int64
     tensors of uint32 words that broadcast together. -> (y0, y1)."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    shape = torch.broadcast_shapes(k0.shape, k1.shape, x0.shape, x1.shape)
+    # numpy's rule: torch.broadcast_shapes imports sympy (seconds a process)
+    shape = np.broadcast_shapes(k0.shape, k1.shape, x0.shape, x1.shape)
     a = ((x0 + ks[0]) & M32).expand(shape).contiguous()
     b = ((x1 + ks[1]) & M32).expand(shape).contiguous()
     for i in range(5):

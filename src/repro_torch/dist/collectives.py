@@ -49,10 +49,10 @@ The mesh routes run over ``torch.distributed``, one rank a mesh shard:
 
 Both give the local route's mean bitwise: the gathered client stack is in
 global client order, which is the order the decode adds clients in. A
-gloo group has no device path, so its payloads are copied to the host
-before each call and back after, counted as ``dist/host_staged_bytes``;
-an NCCL group passes device tensors. ``psum_scatter_mean`` is the
-cross-pod count-weighted mean on a reduce-scatter.
+gloo group's payloads are copied to the host before each call and back
+after, counted as ``dist/host_staged_bytes``; an NCCL group passes device
+tensors. ``psum_scatter_mean`` is the cross-pod count-weighted mean on a
+reduce-scatter.
 """
 from __future__ import annotations
 
@@ -422,21 +422,8 @@ def streamed_mean(pipe, key, x, n, *, client_ids=None, side_info=None, tile: int
 
 # ------------------------------------------------------------ the transport
 
-
-def _to_wire(group, t: torch.Tensor) -> torch.Tensor:
-    """``t`` where ``group``'s transport reads it: gloo has no device path,
-    so a card tensor is copied to the host, and the bytes counted."""
-    if t.device.type != "cpu" and dist.get_backend(group) == "gloo":
-        obs.count("dist", "host_staged_bytes", t.numel() * t.element_size())
-        return t.cpu()
-    return t.contiguous()
-
-
-def _from_wire(t: torch.Tensor, device) -> torch.Tensor:
-    if t.device != device:
-        obs.count("dist", "host_staged_bytes", t.numel() * t.element_size())
-        return t.to(device)
-    return t
+# a gloo group's payloads are staged through the host
+_to_wire, _from_wire = shard_lib.to_wire, shard_lib.from_wire
 
 
 def _start_gather(group, rows: torch.Tensor, counts: list):
@@ -733,9 +720,9 @@ def compressed_mean_tree(spec, key, tree, shardings=None, ef_chunks=None, partic
                                        n_shards=n_shards, plan=plan), ef_next
 
 
-def compressed_mean_tree_shardmap(spec, key, grads, mesh, client_axes=("pod",), ef_chunks=None,
-                                  participants=None, overlap=False, overlap_tile=1,
-                                  ownership=None, *, bank=None, device=None):
+def compressed_mean_tree_shardmap(spec, key, grads, mesh, param_pspecs=None, client_axes=("pod",),
+                                  ef_chunks=None, participants=None, overlap=False,
+                                  overlap_tile=1, ownership=None, *, bank=None, device=None):
     """The explicit-collective route, run by every rank of the mesh's
     ``client_axes``: ``grads`` leaves (n_local, ...) hold THIS rank's
     clients, global ids ``shard * n_local ...``, so n = n_local * shards.
@@ -753,8 +740,10 @@ def compressed_mean_tree_shardmap(spec, key, grads, mesh, client_axes=("pod",), 
     encode and enter the decode, with their ids, and only their residual
     rows move. Error feedback: ``ef_chunks`` (n_local, C, d_block) are this
     rank's residual rows and ``ef_next`` comes back the same: residual rows
-    never leave their rank. The JAX signature's ``param_pspecs`` has no
-    counterpart: the port keeps whole parameters on every rank.
+    never leave their rank. ``param_pspecs`` is taken for the JAX
+    signature's sake and not read (nor does the JAX body read it): ``grads``
+    hold each client's whole gradient, also where the parameters are placed
+    over ``data`` / ``model`` (``train.train_step``).
 
     Returns (mean tree, the same on every rank; info; ef_next | None), the
     mean and residuals bitwise the local route's."""

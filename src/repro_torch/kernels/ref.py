@@ -198,7 +198,7 @@ def sparse_encode_ref(x: torch.Tensor, signs: torch.Tensor, cols: torch.Tensor) 
     """Unscaled ``out[..., r] = sum_t signs[..., r, t] * x[..., cols[..., r, t]]``.
 
     x: (..., d); signs, cols: (..., k, nnz), leading dims broadcast. -> (..., k)"""
-    lead = torch.broadcast_shapes(x.shape[:-1], cols.shape[:-2], signs.shape[:-2])
+    lead = np.broadcast_shapes(x.shape[:-1], cols.shape[:-2], signs.shape[:-2])
     k, nnz = cols.shape[-2:]
     xb = torch.broadcast_to(x, lead + x.shape[-1:])
     cb = torch.broadcast_to(cols.long(), lead + (k, nnz)).reshape(*lead, k * nnz)

@@ -6,6 +6,15 @@ with explicit stored positions.
 The cache is updated IN PLACE: ``attn_layer`` writes the new keys, values and
 positions into the tensors of the cache it is given and returns that same
 dict, where the JAX package returns fresh arrays.
+
+Under a placement whose ``model`` axis splits the heads (dist/sharding.py:
+``wq``/``wk``/``wv`` by columns, ``wo`` by rows) a rank attends over its
+own heads (through the flash kernel at prefill) and one sum over ``model``
+follows ``wo``, where GSPMD puts it. Where the kv heads do not divide over
+``model`` (h * dh may divide while the heads do not), the split weights
+are gathered first and the layer runs whole on every rank, as GSPMD's
+gather before use does; the cache's kv heads are then whole too
+(``cache_shardings``).
 """
 from __future__ import annotations
 
@@ -13,6 +22,7 @@ import math
 
 import torch
 
+from ..dist import sharding as shard_lib
 from ..kernels import ops
 from . import layers
 
@@ -83,6 +93,29 @@ def attention_blocked(q, k, v, q_pos, k_pos, window: int, kv_block: int) -> torc
     return out.reshape(b, sq, h, dh).to(q.dtype)
 
 
+_HEAD_DIM = {"wq": -1, "wk": -1, "wv": -1, "bq": -1, "bk": -1, "bv": -1, "wo": 0}
+
+
+def placed_heads(p, cfg) -> tuple:
+    """-> (p, heads, kv heads, tp): the layer's weights and the heads this
+    rank computes. ``tp``: the weights are split by whole heads over
+    ``model`` (the kv heads divide), so the rank computes its own; else any
+    split weight is gathered and the heads are all of them."""
+    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    whole = {"wq": h * dh, "bq": h * dh, "wo": h * dh}
+    split = [n for n, dim in _HEAD_DIM.items()
+             if n in p and p[n].shape[dim] != whole.get(n, kvh * dh)]
+    if not split:
+        return p, h, kvh, False
+    m = shard_lib.model_size()
+    if kvh % m == 0 and len(split) == sum(n in p for n in _HEAD_DIM):
+        return p, h // m, kvh // m, True
+    p = dict(p)
+    for n in split:
+        p[n] = shard_lib.gather_from(p[n], "model", _HEAD_DIM[n])
+    return p, h, kvh, False
+
+
 def attn_layer(x, p, cfg, spec, *, positions, cache=None, use_kernel: str = "auto"):
     """Full attention layer (pre-norm, residual). Returns (y, cache).
 
@@ -94,8 +127,11 @@ def attn_layer(x, p, cfg, spec, *, positions, cache=None, use_kernel: str = "aut
     attention over the cache. The cache is updated in place.
     """
     b, s, _ = x.shape
-    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    p, h, kvh, tp = placed_heads(p, cfg)
+    dh = cfg.d_head
     xn = layers.rms_norm(x, p["norm"], cfg.norm_eps)
+    if tp:
+        xn = shard_lib.copy_to(xn)
     q = layers.dense(xn, p["wq"], p.get("bq")).reshape(b, s, h, dh)
     k = layers.dense(xn, p["wk"], p.get("bk")).reshape(b, s, kvh, dh)
     v = layers.dense(xn, p["wv"], p.get("bv")).reshape(b, s, kvh, dh)
@@ -138,6 +174,8 @@ def attn_layer(x, p, cfg, spec, *, positions, cache=None, use_kernel: str = "aut
         o = attention_dense(q, cache["k"], cache["v"], positions, cache["pos"], spec.window)
 
     y = layers.dense(o.reshape(b, s, h * dh), p["wo"])
+    if tp:
+        y = shard_lib.reduce_from(y)
     return x + y, cache
 
 

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..dist import sharding as shard_lib
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
@@ -42,6 +44,16 @@ def mlp(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
     else:
         h = F.gelu(dense(x, p["w_up"]), approximate="tanh")
     return dense(h, p["w_down"])
+
+
+def placed_mlp(x: torch.Tensor, p: dict, act: str, d_ff: int) -> torch.Tensor:
+    """``mlp``, column-parallel up / gate and row-parallel down where the
+    installed placement splits ``ff`` over ``model`` (``w_up``'s width is
+    not ``d_ff``): each rank computes its columns, and one sum over
+    ``model`` follows ``w_down``."""
+    if p["w_up"].shape[-1] == d_ff:
+        return mlp(x, p, act)
+    return shard_lib.reduce_from(mlp(shard_lib.copy_to(x), p, act))
 
 
 def embed_tokens(tokens: torch.Tensor, table: torch.Tensor,

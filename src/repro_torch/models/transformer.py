@@ -13,9 +13,19 @@ JAX scan computes. Under autograd, ``remat="block"`` runs each block
 through ``torch.utils.checkpoint`` (its activations recomputed in the
 backward, as ``jax.checkpoint`` of the scan body does), which changes no
 number. ``force_unroll`` is a cost-calibration knob of the JAX package and
-changes nothing here; its activation-sharding constraint is the identity on
-one device and is left out. ``loss_fn`` is the training loss. Caches are
-updated in place (models/attention.py, models/mamba.py).
+changes nothing here. ``act_sharding.constrain`` is called where the JAX
+package calls it (each block, the embedding, the head). ``loss_fn`` is the
+training loss. Caches are updated in place (models/attention.py,
+models/mamba.py).
+
+Placed parameters (ROADMAP A.9.2). Under an installed
+``dist.sharding.Placement`` the parameters are this rank's ``model``
+shards (whole over ``data``: the steps gather the FSDP shards before
+use) and the batch is this rank's rows. The embedding and the head split
+by vocab (a lookup summed over ``model``; logits gathered over it), every
+layer kind computes on its ``model`` shard (attention.py, layers.py,
+moe.py, mamba.py), and the loss divides by the whole batch's label
+count.
 """
 from __future__ import annotations
 
@@ -23,11 +33,14 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from .. import resolve_device
+from ..core import chunking
 from ..core import random as prand
-from . import attention, layers, mamba, moe
+from ..dist import sharding as shard_lib
+from . import act_sharding, attention, layers, mamba, moe
 from .common import LayerSpec, ModelConfig
 
 
@@ -192,26 +205,34 @@ def _n_defs(tree) -> int:
     return len(def_leaves(tree))
 
 
-def init_params(cfg: ModelConfig, key, device=None):
+def init_params(cfg: ModelConfig, key, device=None, shardings=None):
     """Random parameters with the JAX package's recipes (normal * scale,
     damped residual outputs, ones, zeros) from ``key`` (a core.random key or
     an integer seed) on ``device`` (the key's, or the card when None), as
     the JAX package draws them: ``split(key, leaves)``, one key a leaf in
     its tree-flatten order (dict keys sorted), so the weights are the JAX
-    package's within the ``normal`` draw's few float32 ulp."""
+    package's within the ``normal`` draw's few float32 ulp.
+
+    ``shardings`` (``dist.sharding.param_shardings``): each leaf is drawn
+    whole and cut to this rank's shard at once, so no more than one whole
+    leaf is ever held."""
     if device is None and isinstance(key, torch.Tensor):
         device = key.device
     defs = param_defs(cfg)
     keys = iter(prand.split(prand.as_key(key, resolve_device(device)), _n_defs(defs)))
+    pl = None
+    if shardings is not None:
+        pl = shard_lib.Placement(chunking.tree_leaves(shardings)[0].mesh)
 
-    def build(tree):  # in the order of jax.tree.flatten: dict keys sorted
+    def build(tree, sh):  # in the order of jax.tree.flatten: dict keys sorted
         if isinstance(tree, ParamDef):
-            return _init_leaf(tree, next(keys), cfg.params_dtype)
+            leaf = _init_leaf(tree, next(keys), cfg.params_dtype)
+            return leaf if sh is None else pl.local(leaf, sh.spec)
         if isinstance(tree, dict):
-            return {k: build(tree[k]) for k in sorted(tree)}
-        return tuple(build(v) for v in tree)
+            return {k: build(tree[k], None if sh is None else sh[k]) for k in sorted(tree)}
+        return tuple(build(v, None if sh is None else sh[i]) for i, v in enumerate(tree))
 
-    return build(defs)
+    return build(defs, shardings)
 
 
 def abstract_params(cfg: ModelConfig):
@@ -261,6 +282,7 @@ def _unstack(tree, n: int) -> list:
 
 def _run_block(cfg, p_block, x, aux, positions, c_block, use_kernel):
     """One repeat of ``cfg.block_pattern``. -> (x, aux)."""
+    x = act_sharding.constrain(x)
     for i, spec in enumerate(cfg.block_pattern):
         key = f"l{i:02d}"
         x, aux = _run_layer(cfg, spec, p_block[key], x, aux, positions,
@@ -293,18 +315,34 @@ def backbone(params, cfg: ModelConfig, x, positions, cache=None, use_kernel: str
 
 
 def embed_inputs(params, cfg: ModelConfig, inputs):
-    if cfg.input_mode == "tokens":
-        return layers.embed_tokens(inputs, params["embed"], cfg.compute_dtype)
-    return inputs.to(cfg.compute_dtype)
+    """The (B, S, D) activations of ``inputs``: the table's rows of the
+    tokens (a vocab shard's rows summed over ``model`` where the placement
+    splits the vocab), or the embeddings, in the compute dtype."""
+    if cfg.input_mode != "tokens":
+        return act_sharding.constrain(inputs.to(cfg.compute_dtype))
+    table = params["embed"]
+    if table.shape[0] == cfg.vocab_padded:
+        x = layers.embed_tokens(inputs, table, cfg.compute_dtype)
+    else:  # this rank's vocab rows; the others' tokens add zeros
+        local = inputs.long() - shard_lib.current().index("model") * table.shape[0]
+        hit = (local >= 0) & (local < table.shape[0])
+        rows = F.embedding(torch.where(hit, local, 0), table)
+        x = shard_lib.reduce_from(torch.where(hit[..., None], rows, 0.0)).to(cfg.compute_dtype)
+    return act_sharding.constrain(x)
 
 
 def logits_fn(params, cfg: ModelConfig, x):
     """Final norm and the vocab projection in the compute dtype (the tied
     embedding's transpose when ``tie_embeddings``); float32 logits over the
-    padded vocab."""
+    padded vocab (each rank's vocab columns gathered over ``model`` where
+    the placement splits them)."""
+    x = act_sharding.constrain(x)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ w.to(x.dtype)).float()
+    if w.shape[-1] == cfg.vocab_padded:
+        return (x @ w.to(x.dtype)).float()
+    logits = (shard_lib.copy_to(x) @ w.to(x.dtype)).float()
+    return shard_lib.gather_from(logits, "model", -1)
 
 
 def _positions(inputs) -> torch.Tensor:
@@ -331,16 +369,29 @@ def loss_fn(params, cfg: ModelConfig, batch):
 
 def cross_entropy_loss(cfg: ModelConfig, logits, labels, aux):
     """``loss_fn``'s loss from its logits: the mean next-token CE over the
-    labels >= 0, plus the router aux loss. -> (loss, {"ce", "aux"})."""
+    labels >= 0, plus the router aux loss. -> (loss, {"ce", "aux"}).
+
+    Under a placement whose batch axes split the rows, the mean divides by
+    the whole batch's label count: ``loss`` is this rank's share of the
+    whole loss (the shares' gradients sum to its gradient) and the metrics
+    carry the whole batch's ce and loss (``"loss"``)."""
     labels = labels.long()
     valid = labels >= 0
     labels_safe = torch.where(valid, labels, 0)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels_safe[..., None])[..., 0]
-    denom = torch.clamp(valid.sum(), min=1)
-    ce = torch.where(valid, nll, 0.0).sum() / denom
+    pl = shard_lib.current()
+    split = pl is not None and pl.size(pl.batch_axes) > 1
+    n_valid = pl.all_reduce(valid.sum(), pl.batch_axes) if split else valid.sum()
+    denom = torch.clamp(n_valid, min=1)
+    total = torch.where(valid, nll, 0.0).sum()
+    ce = total / denom
     loss = ce + cfg.router_aux_weight * aux
-    return loss, {"ce": ce, "aux": aux}
+    if not split:
+        return loss, {"ce": ce, "aux": aux}
+    ce_all = pl.all_reduce(total.detach(), pl.batch_axes) / denom
+    return loss, {"ce": ce_all, "aux": aux,
+                  "loss": ce_all + cfg.router_aux_weight * aux.detach()}
 
 
 # ------------------------------------------------------------------- decode

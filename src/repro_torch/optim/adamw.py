@@ -7,6 +7,12 @@ it is given, so a snapshot of the old state (a checkpoint, a comparison
 from the same state) stays valid. Leaves are visited in ``ravel_pytree``
 order (``core.chunking.tree_leaves``), so the global norm sums them in the
 JAX package's order.
+
+Placed trees (``shardings=``, a ``dist.sharding.NamedSharding`` tree like
+the parameters): every leaf is this rank's shard, the update is
+elementwise on the shards, and the global norm is the whole tree's: each
+leaf's squares are summed on its shard, counted by one replica of each
+shard, and summed over the mesh before the leaves are added in order.
 """
 from __future__ import annotations
 
@@ -23,17 +29,28 @@ def _map(fn, *trees):
     return chunking.tree_unflatten(trees[0], [fn(*leaves) for leaves in columns])
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's float32 squares, leaf by leaf in order."""
+def global_norm(tree, shardings=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's float32 squares, leaf by leaf in order;
+    of the whole tree whose shards ``tree`` holds under ``shardings``."""
+    leaves = chunking.tree_leaves(tree)
+    sums = [torch.sum(x.float() ** 2) for x in leaves]
+    if shardings is not None:
+        from ..dist import sharding as shard_lib
+
+        specs = [s.spec for s in chunking.tree_leaves(shardings)]
+        pl = shard_lib.Placement(chunking.tree_leaves(shardings)[0].mesh)
+        mine = torch.stack([v if pl.is_leader(spec) else torch.zeros_like(v)
+                            for v, spec in zip(sums, specs)])
+        sums = list(pl.all_reduce(mine, tuple(pl.sizes)).unbind(0))
     total = 0
-    for x in chunking.tree_leaves(tree):
-        total = total + torch.sum(x.float() ** 2)
+    for v in sums:
+        total = total + v
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, shardings=None):
     """-> (tree scaled by min(1, max_norm / (norm + 1e-9)), norm)."""
-    norm = global_norm(tree)
+    norm = global_norm(tree, shardings)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return _map(lambda g: g * scale.to(g.dtype), tree), norm
 
@@ -65,13 +82,14 @@ class AdamW:
         warm = torch.clamp((step + 1) / max(self.warmup_steps, 1), max=1.0)
         return self.lr * warm
 
-    def update(self, grads, state: dict, params):
-        """-> (new params, new state, {"grad_norm", "lr"})."""
+    def update(self, grads, state: dict, params, shardings=None):
+        """-> (new params, new state, {"grad_norm", "lr"}); ``shardings``:
+        the trees hold this rank's shards (module docstring)."""
         step = state["step"] + 1
         if self.grad_clip > 0:
-            grads, gnorm = clip_by_global_norm(grads, self.grad_clip)
+            grads, gnorm = clip_by_global_norm(grads, self.grad_clip, shardings)
         else:
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads, shardings)
         b1, b2 = self.b1, self.b2
         mu = _map(lambda m, g: b1 * m + (1 - b1) * g.float(), state["mu"], grads)
         nu = _map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()), state["nu"], grads)
@@ -101,12 +119,13 @@ class SGDM:
             return {"step": _step0(params)}
         return {"m": _zeros_like(params), "step": _step0(params)}
 
-    def update(self, grads, state: dict, params):
+    def update(self, grads, state: dict, params, shardings=None):
         step = state["step"] + 1
+        gnorm = global_norm(grads, shardings)
         if self.momentum == 0.0:
             new_params = _map(lambda p, g: (p.float() - self.lr * g.float()).to(p.dtype),
                               params, grads)
-            return new_params, {"step": step}, {"grad_norm": global_norm(grads), "lr": self.lr}
+            return new_params, {"step": step}, {"grad_norm": gnorm, "lr": self.lr}
         m = _map(lambda mm, g: self.momentum * mm + g.float(), state["m"], grads)
         new_params = _map(lambda p, mm: (p.float() - self.lr * mm).to(p.dtype), params, m)
-        return new_params, {"m": m, "step": step}, {"grad_norm": global_norm(grads), "lr": self.lr}
+        return new_params, {"m": m, "step": step}, {"grad_norm": gnorm, "lr": self.lr}

@@ -17,15 +17,31 @@ the gradient before encoding and rebuilt from the pipeline's self-decode
 after.
 
 With ``mesh=`` (a ``DeviceMesh``) the exchange runs over the ranks of its
-client axes, every rank holding the whole parameters and applying the same
-update: ``dme_impl="shard_map"`` gives each rank its own clients (rank r
-takes the batch's clients ``r*n_local ...``; their losses and metrics are
+client axes: ``dme_impl="shard_map"`` gives each rank its own clients (rank
+r takes the batch's clients ``r*n_local ...``; their losses and metrics are
 gathered, so every rank reports the all-client means), ``"gspmd"`` has
 every rank compute every client's gradient and encode its share, and
 ``"auto"`` takes shard_map when the clients divide over the client axes,
-else gspmd. The update is bitwise the mesh-less step's. Placing parameters
-over a ``data`` or ``model`` axis (ROADMAP A.9.2) is not ported and raises
-NotImplementedError.
+else gspmd. Without ``data`` / ``model`` axes larger than 1 every rank
+holds the whole parameters and the update is bitwise the mesh-less step's.
+
+Placed parameters (ROADMAP A.9.2): with a ``data`` or ``model`` axis
+larger than 1, ``params`` and the optimizer state hold this rank's shards
+under ``param_shardings`` (default ``dist.sharding.param_shardings(cfg,
+mesh)``; ``init_params(..., shardings=)`` or ``shard_tree`` makes them)
+and the batch is the whole batch, the same on every rank. A rank takes
+its ``data`` rows of each client (the plain step: its rows over the DP
+axes), gathers the FSDP shards over ``data`` (the parameters are then
+split over ``model`` alone) and runs the loss and its backward under a
+``dist.sharding.Placement``: every layer kind computes on its ``model``
+shard, the loss divides by the whole batch's label count and the MoE
+routing keeps the whole batch's capacity, drops and aux loss. Each
+client's gradient is then made whole on every rank (summed over ``data``,
+gathered over ``model``), as the JAX package's shard_map replicates it;
+the compressed mean runs over the client axes as above, and each rank
+updates its own shards (AdamW's global norm is the whole tree's). The
+update is the mesh-less step's within float rounding (the row-parallel and
+over-``data`` sums add in another order).
 
 ``pipeline_stages=N`` runs the block stack layer-pipelined over the mesh's
 ``pipe`` axis (GPipe, ``dist.pipeline``) inside the loss
@@ -34,7 +50,8 @@ embedding, prologue, epilogue and head run on every rank, and after each
 backward the block gradients are summed over the ``pipe`` group (each is
 its stage's on one rank and zero on the others). Every rank then holds the
 whole gradient and applies the same update. With a codec each client's
-loss is pipelined, then the clients' gradients are exchanged.
+loss is pipelined, then the clients' gradients are exchanged. The schedule
+over placed parameters is not ported yet (it raises; ROADMAP A.9.4).
 
 A step is functional: it returns new parameter and state trees and changes
 none it is given.
@@ -42,6 +59,7 @@ none it is given.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.utils.checkpoint
@@ -53,7 +71,7 @@ from ..core.codec import as_pipeline
 from ..dist import collectives
 from ..dist import pipeline as pipe_lib
 from ..dist import sharding as shard_lib
-from ..models import transformer
+from ..models import act_sharding, transformer
 
 
 def _pipelined_loss(params, cfg, batch, *, mesh, axis, n_stages, n_micro):
@@ -94,8 +112,10 @@ def _pipelined_loss(params, cfg, batch, *, mesh, axis, n_stages, n_micro):
             return h
 
         staged = pipe_lib.partition_blocks(params["blocks"], n_stages)
-        xm = x.reshape((n_micro, b // n_micro) + tuple(x.shape[1:]))
-        x = pipe_lib.pipeline_apply(stage_fn, staged, xm, mesh, axis).reshape(x.shape)
+        # the stages manage their own placement, as in the JAX package
+        with act_sharding.constraint(None):
+            xm = x.reshape((n_micro, b // n_micro) + tuple(x.shape[1:]))
+            x = pipe_lib.pipeline_apply(stage_fn, staged, xm, mesh, axis).reshape(x.shape)
     for i, spec in enumerate(cfg.epilogue):
         x, aux = transformer._run_layer(cfg, spec, params["epilogue"][i], x, aux, positions,
                                         None, "auto")
@@ -121,18 +141,76 @@ def _value_and_grad(params, cfg, batch, loss_fn=transformer.loss_fn, pipeline=No
         for i, g in zip(at, pipe_lib.reduce_stage_grads([grads[i] for i in at], *pipeline)):
             grads[i] = g
     metrics = {k: v.detach() for k, v in metrics.items()}
+    loss = metrics.pop("loss", loss)  # a placed loss reports the whole batch's
     return loss.detach(), metrics, chunking.tree_unflatten(params, grads)
 
 
-def init_train_state(cfg, optimizer, params, dme_spec=None, n_clients: int = 0) -> dict:
+class _Placed:
+    """The placed step's view of the mesh (module docstring): the
+    parameters' specs, the axes a batch's rows split over, and the
+    gradient's way from the shards to the whole tree and back."""
+
+    def __init__(self, mesh, shardings, row_axes):
+        self.shardings = shardings
+        self.specs = [s.spec for s in chunking.tree_leaves(shardings)]
+        self.pl = shard_lib.Placement(mesh, batch_axes=row_axes)
+        entry = row_axes[0] if len(row_axes) == 1 else (tuple(row_axes) or None)
+        self.layout = shard_lib.NamedSharding(mesh, (entry, None, None))
+        self._work = None
+
+    def rows(self, batch: dict) -> dict:
+        """This rank's rows of each of ``batch``'s tensors."""
+        n, k = next(iter(batch.values())).shape[0], self.pl.size(self.pl.batch_axes)
+        if n % k:
+            raise ValueError(f"{n} rows do not split over the batch axes "
+                             f"{self.pl.batch_axes} ({k} ranks)")
+        i = self.pl.index(self.pl.batch_axes)
+        return {name: t[i * (n // k):(i + 1) * (n // k)] for name, t in batch.items()}
+
+    def gathered(self, params) -> list:
+        """The parameters' FSDP shards gathered over ``data`` (their
+        ``model`` shards), once for all of a step's clients."""
+        if self._work is None or self._work[0] is not params:
+            self._work = (params, self.pl.full_many(chunking.tree_leaves(params), self.specs,
+                                                    "data"))
+        return self._work[1]
+
+    def release(self) -> None:
+        """Drop the gathered parameters: at rest a rank holds its shards."""
+        self._work = None
+
+    def value_and_grad(self, params, cfg, batch):
+        """-> (loss, metrics, grads): the whole batch's loss and metrics,
+        and the gradient as whole tensors, from this rank's shards."""
+        work = self.gathered(params)
+        with shard_lib.placing(self.pl), act_sharding.constraint(self.layout):
+            loss, metrics, grads = _value_and_grad(chunking.tree_unflatten(params, work), cfg,
+                                                   self.rows(batch))
+        g = self.pl.all_reduce_many(chunking.tree_leaves(grads), self.pl.batch_axes)
+        g = self.pl.full_many(g, self.specs, "model")
+        return loss, metrics, chunking.tree_unflatten(params, g)
+
+    def local(self, grads):
+        """The whole gradient tree cut to this rank's shards."""
+        return chunking.tree_unflatten(grads, [self.pl.local(g, spec) for g, spec in
+                                               zip(chunking.tree_leaves(grads), self.specs)])
+
+
+def init_train_state(cfg, optimizer, params, dme_spec=None, n_clients: int = 0,
+                     shardings=None) -> dict:
     """{"opt": optimizer state[, "ef": (n_clients, C, d_block) float32
-    zeros when the pipeline has error feedback]}, on the parameters' device."""
+    zeros when the pipeline has error feedback]}, on the parameters' device.
+    ``shardings``: ``params`` are this rank's shards (the moments are too;
+    the residuals cover the whole gradient)."""
     state = {"opt": optimizer.init(params)}
     if dme_spec is not None:
         pipe = as_pipeline(dme_spec)
         if pipe.has_ef:
             leaves = chunking.tree_leaves(params)
-            c = chunking.num_chunks(sum(p.numel() for p in leaves), pipe.d_block)
+            sizes = [p.numel() for p in leaves] if shardings is None else [
+                math.prod(shard_lib.whole_shape(p.shape, s.spec, s.mesh))
+                for p, s in zip(leaves, chunking.tree_leaves(shardings))]
+            c = chunking.num_chunks(sum(sizes), pipe.d_block)
             state["ef"] = torch.zeros((n_clients, c, pipe.d_block), dtype=torch.float32,
                                       device=leaves[0].device)
     return state
@@ -141,7 +219,8 @@ def init_train_state(cfg, optimizer, params, dme_spec=None, n_clients: int = 0) 
 def make_train_step(cfg, optimizer, *, dme_spec=None, mesh=None, client_axes=("pod",),
                     seed: int = 0, dme_impl: str = "auto", dme_overlap: bool = False,
                     dme_overlap_tile: int = 1, dme_ownership=False, pipeline_stages: int = 0,
-                    pipeline_axis: str = "pipe", pipeline_microbatches: int = 0, device=None):
+                    pipeline_axis: str = "pipe", pipeline_microbatches: int = 0,
+                    param_shardings=None, device=None):
     """-> step(params, state, batch, step) -> (params, state, metrics) on
     ``device`` (the card when None).
 
@@ -159,7 +238,12 @@ def make_train_step(cfg, optimizer, *, dme_spec=None, mesh=None, client_axes=("p
 
     ``pipeline_stages >= 1`` runs the block stack layer-pipelined over the
     ``pipeline_axis`` mesh axis, whose size it must be, in
-    ``pipeline_microbatches`` microbatches (default: the stage count)."""
+    ``pipeline_microbatches`` microbatches (default: the stage count).
+
+    A mesh with a ``data`` or ``model`` axis larger than 1 places the
+    parameters (module docstring): ``param_shardings`` is their
+    NamedSharding tree (default ``param_shardings(cfg, mesh)``; pass the
+    tree the shards were cut by, e.g. with ``MODEL_PREF_EP``)."""
     value_and_grad = _value_and_grad
     if pipeline_stages:
         sizes = {} if mesh is None else shard_lib.mesh_axis_sizes(mesh)
@@ -180,14 +264,25 @@ def make_train_step(cfg, optimizer, *, dme_spec=None, mesh=None, client_axes=("p
             pipeline=(mesh, pipeline_axis))
     if dme_impl not in ("auto", "shard_map", "gspmd"):
         raise ValueError(f"dme_impl must be auto, shard_map or gspmd, got {dme_impl!r}")
-    if mesh is not None:
-        placed = {a: s for a, s in shard_lib.mesh_axis_sizes(mesh).items()
-                  if a in ("data", "model") and s > 1}
-        if placed:
-            raise NotImplementedError(
-                f"mesh axes {placed}: placing parameters over a data or model axis is not "
-                "ported to repro_torch yet (ROADMAP A.9.2); give them size 1")
+    sizes = {} if mesh is None else shard_lib.mesh_axis_sizes(mesh)
+    placed = None
+    if sizes.get("data", 1) > 1 or sizes.get("model", 1) > 1:
+        if pipeline_stages:
+            raise NotImplementedError("pipeline_stages with parameters placed over a data "
+                                      "or model axis is not ported yet (ROADMAP A.9.4)")
+        shardings = param_shardings or shard_lib.param_shardings(cfg, mesh)
+        row_axes = (tuple(a for a in ("data",) if a not in client_axes) if dme_spec is not None
+                    else shard_lib.dp_axes(mesh))
+        placed = _Placed(mesh, shardings, row_axes)
+        value_and_grad = placed.value_and_grad
     dev = resolve_device(device)
+
+    def _update(grads, state, params):
+        if placed is None:
+            return optimizer.update(grads, state["opt"], params)
+        placed.release()
+        return optimizer.update(placed.local(grads), state["opt"], params,
+                                shardings=placed.shardings)
 
     def _on_device(batch):
         return {name: t.to(dev) for name, t in batch.items()}
@@ -196,7 +291,7 @@ def make_train_step(cfg, optimizer, *, dme_spec=None, mesh=None, client_axes=("p
 
         def plain_step(params, state, batch, step):
             loss, metrics, grads = value_and_grad(params, cfg, _on_device(batch))
-            params, opt, om = optimizer.update(grads, state["opt"], params)
+            params, opt, om = _update(grads, state, params)
             return params, {"opt": opt}, {"loss": loss, **metrics, **om}
 
         return plain_step
@@ -220,8 +315,10 @@ def make_train_step(cfg, optimizer, *, dme_spec=None, mesh=None, client_axes=("p
         lo, hi = (shard * (n // n_shards), (shard + 1) * (n // n_shards)) if shard_map \
             else (0, n)
         leaves = chunking.tree_leaves(params)
-        stacked = [torch.empty((hi - lo,) + tuple(p.shape), dtype=p.dtype, device=p.device)
-                   for p in leaves]
+        shapes = [tuple(p.shape) for p in leaves] if placed is None else [
+            shard_lib.whole_shape(p.shape, spec, mesh) for p, spec in zip(leaves, placed.specs)]
+        stacked = [torch.empty((hi - lo,) + shape, dtype=p.dtype, device=p.device)
+                   for p, shape in zip(leaves, shapes)]
         losses, metrics = [], []
         for i in range(lo, hi):
             loss, m, grads = value_and_grad(params, cfg, {k: v[i] for k, v in batch.items()})
@@ -233,6 +330,8 @@ def make_train_step(cfg, optimizer, *, dme_spec=None, mesh=None, client_axes=("p
         losses = torch.stack(losses)
         metrics = {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
         grads = chunking.tree_unflatten(params, stacked)
+        if placed is not None:
+            placed.release()
         ef = state.get("ef")
         if shard_map:
             if ef is not None and ef.shape[0] == n:
@@ -250,7 +349,7 @@ def make_train_step(cfg, optimizer, *, dme_spec=None, mesh=None, client_axes=("p
                 pipe, key, grads, shardings, ef_chunks=ef, overlap=dme_overlap,
                 overlap_tile=dme_overlap_tile, ownership=dme_ownership or None, device=dev)
         del stacked, grads
-        params, opt, om = optimizer.update(grad_mean, state["opt"], params)
+        params, opt, om = _update(grad_mean, state, params)
         new_state = {"opt": opt}
         if new_ef is not None:
             new_state["ef"] = new_ef

@@ -372,3 +372,4 @@ def test_two_ranks_restore_onto_a_mesh(two):
         got = two[1][r]["restore"]
         assert got["step"] == 1 and all(got["bitwise"]) and len(got["bitwise"]) == got["leaves"]
         assert got["sharded"] > 0
+        assert got["local_is_shard_tree"]  # the placed steps' shards

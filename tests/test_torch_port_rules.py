@@ -196,8 +196,8 @@ def test_unported_options_raise(capfd):
     for argv in (["--pods", "2"], ["--pods", "2", "--hosts", "2"]):
         assert fl_run.main(["--device", "cpu", "--smoke", "--task", "dme", *argv]) == 0
         assert "total_bytes=" in capfd.readouterr().out  # process 0 reported
-    # the GPipe schedule on a one-rank pipe axis; what is left: parameters
-    # placed over a data or model axis
+    # the GPipe schedule on a one-rank pipe axis; parameters placed over a
+    # data or model axis (tests/test_torch_placed.py), but not through it
     cfg = configs.preset_config("musicgen-medium", "tiny")
     params = transformer.init_params(cfg, 0, device="cpu")
     tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(0))
@@ -211,10 +211,10 @@ def test_unported_options_raise(capfd):
     finally:
         dist.destroy_process_group()
     for shape in ((1, 2, 1), (1, 1, 2)):
-        mesh = types.SimpleNamespace(axis_names=("pod", "data", "model"),
+        mesh = types.SimpleNamespace(axis_names=("pipe", "data", "model"),
                                      devices=np.empty(shape))
-        with pytest.raises(NotImplementedError, match=r"data or model axis.*ROADMAP A\.9\.2"):
-            make_train_step(cfg, AdamW(), mesh=mesh, device="cpu")
+        with pytest.raises(NotImplementedError, match=r"data or model axis.*ROADMAP A\.9\.4"):
+            make_train_step(cfg, AdamW(), mesh=mesh, pipeline_stages=1, device="cpu")
     with pytest.raises(ValueError):
         ops.fwht(torch.randn(2, 8), use_kernel="sometimes")
 

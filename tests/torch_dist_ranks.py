@@ -1,5 +1,6 @@
 """Rank bodies of the port's multi-rank tests (tests/test_torch_dist_mesh.py,
-tests/test_torch_pipeline.py, tests/test_torch_runtime.py).
+tests/test_torch_pipeline.py, tests/test_torch_runtime.py,
+tests/test_torch_placed.py).
 
 ``run_ranks(body, world, tmp_path)`` starts ``world`` processes with
 torch.multiprocessing (forked from a server process that imported this
@@ -214,7 +215,8 @@ def four_ranks(rank: int, world: int) -> dict:
 def restore_case(world: int) -> dict:
     """A checkpoint of tiny musicgen-medium's parameters restored onto a
     ``model`` mesh axis over the ranks: each leaf's full_tensor() against
-    the plain restore, and how many leaves were sharded."""
+    the plain restore, how many leaves were sharded, and whether each
+    DTensor's local part is the shard ``sharding.shard_tree`` cuts."""
     import tempfile
 
     cfg = configs.preset_config(TRAIN_ARCH, "tiny")
@@ -225,7 +227,11 @@ def restore_case(world: int) -> dict:
         plain, _ = checkpoint.restore(d, params)
         placed, step = checkpoint.restore(d, params, shardings=sharding.param_shardings(cfg, mesh))
     pairs = list(zip(chunking.tree_leaves(plain), chunking.tree_leaves(placed)))
+    sh = sharding.param_shardings(cfg, mesh)
+    shards = chunking.tree_leaves(sharding.shard_tree(plain, sh))
     return {"step": step,
+            "local_is_shard_tree": all(torch.equal(b.to_local(), c)
+                                       for (_, b), c in zip(pairs, shards)),
             "bitwise": [bool(torch.equal(a, b.full_tensor())) for a, b in pairs],
             "sharded": sum(any(not p.is_replicate() for p in b.placements) for _, b in pairs),
             "leaves": len(pairs)}
@@ -360,8 +366,196 @@ def runtime_two(rank: int, world: int) -> dict:
     return out
 
 
+# ------------------------------------- parameters placed over data / model
+
+PLACED_MESHES = {"1x2x2": (1, 2, 2), "2x2x1": (2, 2, 1)}  # (pod, data, model)
+PLACED_AXES = ("pod", "data", "model")
+PLACED_BATCH = (2, 4, 32)  # clients x rows a client x tokens: tests/test_distribution.py's
+PLACED_SERVE = dict(batch=4, prompt_len=16, gen=5)  # the prefill and 4 greedy tokens
+PLACED_OPT = dict(eps=1e-6)  # AdamW at eps 1e-6, as tests/test_torch_train.py's parity steps
+# name -> (arch, config overrides, model preference, step kind, meshes). The
+# DME cases (every arch, deepseek-moe-16b with both model preferences) run
+# on both meshes and are also held against the JAX package's step; the
+# others take the plain step (rows over the DP axes, the gradient summed
+# over them) with the same placement.
+PLACED_MESH_NAMES = tuple(PLACED_MESHES)
+PLACED_CASES = {
+    "musicgen-medium": ("musicgen-medium", {}, "default", "dme", PLACED_MESH_NAMES),
+    "deepseek-moe-16b": ("deepseek-moe-16b", {}, "default", "dme", PLACED_MESH_NAMES),
+    "deepseek-moe-16b_ep": ("deepseek-moe-16b", {}, "ep", "dme", PLACED_MESH_NAMES),
+    "deepseek-moe-16b_plain": ("deepseek-moe-16b", {}, "default", "plain", ("2x2x1",)),
+    "mamba2-130m": ("mamba2-130m", {}, "default", "dme", PLACED_MESH_NAMES),
+    "mamba2-130m_plain": ("mamba2-130m", {}, "default", "plain", ("2x2x1",)),
+    "jamba-v0.1-52b": ("jamba-v0.1-52b", {}, "default", "dme", PLACED_MESH_NAMES),
+    # the split in_z / in_x layout, and heads whose h * dh divides over
+    # model while h does not (the weights gathered before use)
+    "mamba2-130m_split": ("mamba2-130m", {"mamba_split_proj": True}, "default", "plain",
+                          ("1x2x2",)),
+    "musicgen-medium_heads3": ("musicgen-medium", {"n_heads": 3, "n_kv_heads": 3}, "default",
+                               "plain", ("1x2x2",)),
+    # the data slices differ in valid labels and in routed drops
+    "drops": ("deepseek-moe-16b", {}, "default", "plain", ("1x2x2", "2x2x1")),
+}
+PLACED_SERVED = tuple(n for n in PLACED_CASES if n != "drops")  # also served on their meshes
+
+
+def placed_config(name: str):
+    arch, over, _, _, _ = PLACED_CASES[name]
+    return configs.reduce_for_smoke(configs.get_config(arch)).replace(vocab_pad_multiple=32,
+                                                                      **over)
+
+
+def placed_spec():
+    return codec.build("rand_proj_spatial", k=16, d_block=128)
+
+
+def placed_params(cfg) -> dict:
+    """Weights with ``init_params``' recipes, the random leaves drawn with
+    numpy (seed 0): threefry's draws cost each rank seconds on the CPU."""
+    from repro_torch.models import transformer
+
+    rng = np.random.default_rng(0)
+
+    def leaf(d):
+        if d.init not in ("normal", "scaled"):
+            return transformer._init_leaf(d, torch.zeros(2, dtype=torch.int64), torch.float32)
+        scale = d.scale / (2.0 * 24.0) ** 0.5 if d.init == "scaled" else d.scale
+        return torch.from_numpy((scale * rng.standard_normal(d.shape)).astype(np.float32))
+
+    return transformer.map_defs(leaf, transformer.param_defs(cfg))
+
+
+def placed_batch(name: str, vocab: int) -> dict:
+    """The case's (2, 4, 32) token batch, made with numpy; the plain step
+    takes the clients' rows as one batch of 8. ``drops``: the first half of
+    the 8 rows (the first data slice on either mesh) repeat one token, so
+    their slots crowd two experts past the capacity, and all their labels
+    count; the other rows keep 3 labels a row."""
+    c, r, s = PLACED_BATCH
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, vocab, (c, r, s + 1)).astype(np.int32)
+    plain = PLACED_CASES[name][3] == "plain"
+    if plain:
+        toks = toks.reshape(c * r, s + 1)
+    labels = toks[..., 1:].copy()
+    if name == "drops":
+        toks[:c * r // 2] = 7
+        labels = toks[..., 1:].copy()
+        labels[c * r // 2:, 3:] = -1
+    return {"inputs": torch.from_numpy(toks[..., :-1].copy()), "labels": torch.from_numpy(labels)}
+
+
+class GradRecorder:
+    """AdamW that keeps the gradient of its last update."""
+
+    def __init__(self, inner):
+        self.inner, self.grads = inner, None
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, state, params, **kw):
+        self.grads = grads
+        return self.inner.update(grads, state, params, **kw)
+
+
+def placed_step(name: str, mesh=None) -> dict:
+    """One step of the case from ``init_params(seed 0)``, placed over
+    ``mesh`` (None: the mesh-less step): the loss, metrics, the gradient
+    entering AdamW and the new parameters as whole trees; with a mesh
+    also the shapes this rank held at rest."""
+    arch, _, pref, kind, _ = PLACED_CASES[name]
+    cfg = placed_config(name)
+    spec = placed_spec() if kind == "dme" else None
+    opt = GradRecorder(AdamW(**PLACED_OPT))
+    sh, params = None, placed_params(cfg)
+    if mesh is not None:
+        sh = sharding.param_shardings(
+            cfg, mesh, model_pref=sharding.MODEL_PREF_EP if pref == "ep" else sharding.MODEL_PREF)
+        params = sharding.shard_tree(params, sh)
+    state = init_train_state(cfg, opt, params, spec, PLACED_BATCH[0], shardings=sh)
+    step = make_train_step(cfg, opt, dme_spec=spec, mesh=mesh, param_shardings=sh, device="cpu")
+    new, new_state, metrics = step(params, state, placed_batch(name, cfg.vocab_size), 0)
+    out = {"metrics": {k: float(v) for k, v in metrics.items()}}
+    if mesh is None:
+        return {**out, "grads": chunking.tree_leaves(opt.grads),
+                "params": chunking.tree_leaves(new)}
+    opt_leaves = chunking.tree_leaves({k: new_state["opt"][k] for k in ("mu", "nu")})
+    return {**out, "grads": chunking.tree_leaves(sharding.full_tree(opt.grads, sh)),
+            "params": chunking.tree_leaves(sharding.full_tree(new, sh)),
+            "at_rest": [tuple(t.shape) for t in chunking.tree_leaves(new) + opt_leaves],
+            "specs": [s.spec for s in chunking.tree_leaves(sh)]}
+
+
+def placed_serve(name: str, mesh=None) -> dict:
+    """The case's float32 prefill and 4 greedy tokens (``launch.serve.serve``
+    on seed 0's weights and prompts), placed over ``mesh`` or not."""
+    from repro_torch.launch.serve import serve
+
+    cfg = placed_config(name)
+    sh = None if mesh is None else sharding.param_shardings(
+        cfg, mesh, model_pref=sharding.MODEL_PREF_EP if PLACED_CASES[name][2] == "ep"
+        else sharding.MODEL_PREF)
+    params = placed_params(cfg) if sh is None else sharding.shard_tree(placed_params(cfg), sh)
+    res = serve(cfg, params, device="cpu", mesh=mesh, param_shardings=sh, **PLACED_SERVE)
+    return {k: res[k] for k in ("tokens", "prefill_logits", "last_logits")}
+
+
+def placed_moe_layer(mesh) -> dict:
+    """tiny deepseek-moe-16b's MoE FFN on 64 tokens whose first half (the
+    first ``data`` slice) is one token repeated: this rank's rows of y and
+    the aux loss, under a placement whose batch axes are ``data``."""
+    from repro_torch.models import moe
+
+    cfg = placed_config("deepseek-moe-16b")
+    p = placed_params(cfg)["blocks"]["l00"]["ffn"]
+    p = {k: v[0] for k, v in p.items() if k != "shared"}
+    x = placed_moe_tokens(cfg)
+    pl = sharding.Placement(mesh, batch_axes=("data",))
+    n = x.shape[0] // pl.size("data")
+    sh = sharding.param_shardings(cfg, mesh)["blocks"]["l00"]["ffn"]
+    # the model shards, whole over data (what the steps hand the layers)
+    local = {k: pl.local(v, tuple(None if e == "data" else e for e in sh[k].spec[1:]))
+             for k, v in p.items()}
+    with sharding.placing(pl):
+        y, aux = moe.moe_ffn(x[pl.index("data") * n:(pl.index("data") + 1) * n], local,
+                             cfg.replace(n_shared_experts=0))
+    return {"y": pl.all_gather(y, ("data",), 0), "aux": float(aux)}
+
+
+def placed_moe_tokens(cfg) -> torch.Tensor:
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((64, cfg.d_model)).astype(np.float32)
+    x[:32] = x[0]
+    return torch.from_numpy(x)
+
+
+def placed_init(mesh) -> list:
+    """``init_params(shardings=)`` of a narrow config, gathered back whole."""
+    cfg = placed_config("mamba2-130m").replace(d_model=16, mamba_d_inner=32, mamba_headdim=8,
+                                               d_state=4, vocab_size=64, n_blocks=1)
+    sh = sharding.param_shardings(cfg, mesh)
+    return chunking.tree_leaves(sharding.full_tree(
+        init_params(cfg, 0, device="cpu", shardings=sh), sh))
+
+
+def placed(rank: int, world: int) -> dict:
+    mesh = sharding.make_mesh((1, 2, 2), PLACED_AXES, device="cpu")
+    out = {"moe_layer": placed_moe_layer(mesh), "init": placed_init(mesh)}
+    for mesh_name, shape in PLACED_MESHES.items():
+        mesh = sharding.make_mesh(shape, PLACED_AXES, device="cpu")
+        for name, (_, _, _, _, meshes) in PLACED_CASES.items():
+            if mesh_name in meshes:
+                out[f"{name}/{mesh_name}/step"] = placed_step(name, mesh)
+                if name in PLACED_SERVED:
+                    out[f"{name}/{mesh_name}/serve"] = placed_serve(name, mesh)
+    out["imported"] = sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    return out
+
+
 BODIES = {"four_ranks": four_ranks, "two_ranks": two_ranks, "pipe_two": pipe_two,
-          "pipe_four": pipe_four, "runtime_two": runtime_two}
+          "pipe_four": pipe_four, "runtime_two": runtime_two, "placed": placed}
 
 
 # --------------------------------------------------------------- the spawn

@@ -7,6 +7,7 @@ environment and build phases (each phase's checks stay fatal):
     python3 tools/chip_phases.py gc_probe
     python3 tools/chip_phases.py dist
     python3 tools/chip_phases.py pipeline hier
+    python3 tools/chip_phases.py placed
 
 ``gc_probe`` times the mamba2-130m training cell ((d)) three times in one
 process: fresh, after ``phase_fl`` (which leaves millions of live Python
@@ -21,6 +22,9 @@ checkout too, to compare two trees in one call. ``pipeline`` runs
 ``phase_pipeline`` (the GPipe schedule on mamba2-130m at full width) and
 ``hier`` ``phase_hier`` (hierarchical FL rounds at the estimator's full
 width, over one and two processes, and the CLI's ``--pods 2 --hosts 2``).
+``placed`` runs ``phase_placed`` (parameters placed over the data and
+model axes: musicgen-medium's DME step and gemma3-4b's serving on four gloo
+ranks on the card).
 """
 from __future__ import annotations
 
@@ -117,6 +121,7 @@ def main(names: list) -> int:
         "dist_timing": dist_timing,
         "pipeline": cs.phase_pipeline,
         "hier": lambda smi: cs.phase_hier(smi, cs.fl_task()),
+        "placed": lambda smi: cs.phase_placed(smi, cs.Errors()),
     }
     for name in names:
         t0 = time.perf_counter()
